@@ -1,0 +1,15 @@
+from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.synthetic import (
+    FederatedImageData,
+    SyntheticImageDataset,
+    make_federated_image_data,
+    make_image_dataset,
+)
+
+__all__ = [
+    "dirichlet_partition",
+    "FederatedImageData",
+    "SyntheticImageDataset",
+    "make_federated_image_data",
+    "make_image_dataset",
+]

@@ -1,0 +1,51 @@
+"""Parameter trees: nested dicts of tensors.
+
+The port keeps the reference's tree layout (``{"conv1": {"w", "b"}, ...}``)
+and needs only a few helpers over it; ``tree_weighted_sum`` is a copy of
+``repro.utils.tree.tree_weighted_sum`` (the FedAvg primitive).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator
+
+PyTree = Any
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Apply ``fn`` leafwise over dict trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_leaves_with_path(tree: PyTree, prefix: str = "") -> Iterator:
+    """(path, leaf) pairs; paths read like ``jax.tree_util.keystr``
+    (``['conv1']['w']``), so a leaf's name is the same on both sides."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_scale(a: PyTree, s) -> PyTree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_weighted_sum(trees: list[PyTree], weights) -> PyTree:
+    """sum_i weights[i] * trees[i]  (the FedAvg aggregation primitive)."""
+    assert len(trees) == len(weights) and trees, "need >=1 tree"
+    out = tree_scale(trees[0], weights[0])
+    for t, w in zip(trees[1:], weights[1:]):
+        out = tree_add(out, tree_scale(t, w))
+    return out
