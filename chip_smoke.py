@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA H100 and check it.
+"""Drive the PyTorch port's two paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
-Phases, each printing one JSON line (any mismatch or fault exits
-non-zero; no phase's failure is caught):
+The paths: PHSFL training of the paper's CNN (``FedSim``, kernel K1, the
+quantize-dequantize) and personalized LM serving on gemma3-12b
+(``launch/serve.py``, kernel K2, flash attention).  Phases, each printing
+one JSON line (any mismatch or fault exits non-zero; no phase's failure
+is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
    it (also printed as a line of its own), torch and CUDA versions;
-2. build: compile every kernel of the path from the sources in the
-   checkout (K1, the quantize-dequantize kernel) and time the build;
-3. check: each kernel's wrapper on the card at the shapes the main path
-   gives it, held with ``torch.equal`` against its plain PyTorch version
-   on the same inputs; the straight-through gradient is exactly ones;
-4. time: each kernel, its plain version and its bound, with CUDA events
-   at the main path's shape;
-5. reference: a small FedSim on the card against the same run on the CPU
+2. build: compile every kernel from the sources in the checkout, one
+   ``nvcc`` per source, all started together, each with its time and
+   ptxas report;
+3. check: K1 on the card at the shapes its path gives it, held with
+   ``torch.equal`` against its plain PyTorch version on the same inputs;
+   the straight-through gradient is exactly ones;
+4. check_flash: K2 against its plain version on the card (the
+   reference's sweep, softcap, a ragged length, the head bank at the
+   reference's size, the serving path's shapes; 2e-5 in float32, 2e-2 in
+   bfloat16), and its backward against autograd of the plain version;
+5. time: K1, its plain version and its bound, with CUDA events;
+6. time_flash: K2 at the serving path's two shapes (global and
+   sliding-window layers), its plain version, its bound and PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs;
+7. reference: a small FedSim on the card against the same run on the CPU
    (the plain versions), on the same data and seed;
-6. fedsim: the slice at the paper's full width (``CNNConfig()``, 4 ESs x
-   25 clients, batch 32, int8 with stochastic rounding on all three links),
-   two global rounds then ``personalize`` with K = 10, with the kernels'
-   launch counts read around that run alone;
-7. profile: where a training step's device time goes, and the device's
+8. fedsim: the CNN path at the paper's full width (``CNNConfig()``, 4 ESs
+   x 25 clients, batch 32, int8 with stochastic rounding on all three
+   links), two global rounds then ``personalize`` with K = 10, with every
+   kernel's launch count set to 0 just before and read just after;
+9. profile: where a training step's device time goes, and the device's
    busy share;
-8. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
-   line.
+10. reference_serve: ``serve()`` at ``gemma3-12b.reduced(num_layers=12)``
+    on the card against the same call on the CPU, same weights and seed:
+    the head bank, the logits and the generated tokens;
+11. serve: the LM path at gemma3-12b's full width, cut to 12 layers (two
+    of them global), the reference's serving defaults with a head bank
+    over 2048-token sequences, counts set to 0 just before and read just
+    after; then where one trunk forward's device time goes;
+12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+    line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are not beside this script.
@@ -32,11 +49,13 @@ port's sources are not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,12 +65,21 @@ sys.path.insert(0, str(ROOT / "src"))
 # card's full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 HBM_SOURCE = "NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3"
+# dense bfloat16 tensor-core rate, same sheet and limit
+BF16_FLOPS = 989e12
 
 # the main path's K1 shape: U clients x one client's cut activations
 # (batch 32 x 16 x 16 x 64 at the default cut) or its o_bp gradient
 MAIN_SHAPE = (100, 32 * 16 * 16 * 64)
 CHECK_SHAPES = [(1, 7), (1, 16 * 16 * 16 * 64), MAIN_SHAPE,
                 (100, 3 * 3 * 3 * 64), (100, 64), (7, 1001)]
+
+# K2 on the serving path: the head bank's one trunk forward over 3 clients
+# x 2 sequences x 2048 tokens at gemma3-12b's width (16 query heads over 8
+# kv heads of 256), bf16; sliding-window layers (1024) and global ones
+FLASH_MAIN = dict(b=6, s=2048, h=16, kvh=8, d=256)
+FLASH_LAYERS = {"global": 0, "local": 1024}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -94,13 +122,30 @@ def phase_device(torch):
     return smi
 
 
-def phase_build(kernel):
-    kernel.build()
-    ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "quantize",
-          "seconds": kernel.build_seconds, "library": kernel.library_path()
-          .name, "ptxas": ptxas})
+def phase_build(kernels):
+    """One nvcc per source, all started together (each build is a
+    subprocess; the threads only wait on them)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        futures = [ex.submit(k.build) for k in kernels.values()]
+        for f in futures:
+            f.result()
+    wall = time.perf_counter() - t0
+    for name, kernel in kernels.items():
+        ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": name,
+              "seconds": kernel.build_seconds, "all_builds_wall_s": wall,
+              "library": kernel.library_path().name, "ptxas": ptxas})
+
+
+def reset_counts(kernels) -> None:
+    for kernel in kernels.values():
+        kernel.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {name: kernel.launches for name, kernel in kernels.items()}
 
 
 def phase_check(torch, ops, ref):
@@ -218,7 +263,7 @@ def phase_reference(np):
     emit({"phase": "reference", "cuda_vs_cpu": worst, "ok": True})
 
 
-def phase_fedsim(torch, np, kernel):
+def phase_fedsim(torch, np, kernels):
     FedSim, CNNConfig, H, T, make_data, link_codecs = _fedsim_parts()
     from repro_torch.models import cnn
     cfg = CNNConfig()
@@ -233,7 +278,7 @@ def phase_fedsim(torch, np, kernel):
     codecs = link_codecs("int8")
 
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0                    # count the main path's run alone
+    reset_counts(kernels)                  # count this path's run alone
     sim = FedSim(cfg, data, h, t, batches_per_epoch=bpe, seed=0,
                  codecs=codecs)
     per_round = []
@@ -248,7 +293,8 @@ def phase_fedsim(torch, np, kernel):
                           "test_acc": row["test_acc"]})
     (heads, per), pers_s = sync_time(
         torch, lambda: sim.personalize(res.global_params))
-    launches = kernel.launches
+    counts = read_counts(kernels)
+    launches = counts["quantize"]
     peak = torch.cuda.max_memory_allocated()
 
     # one launch per leaf of the client block per edge round
@@ -276,28 +322,27 @@ def phase_fedsim(torch, np, kernel):
           "personalized_acc_mean": float(np.mean(per["acc"])),
           "global_acc_mean": float(np.mean(res.per_client_global["acc"])),
           "peak_mem_GB": peak / 1e9,
-          "quantize_launches": launches,
-          "quantize_launches_expected": expected,
+          "launches": counts, "quantize_launches_expected": expected,
           "finite": finite, "heads_shape_ok": shapes_ok})
     assert finite, "non-finite metrics"
     assert shapes_ok, "personalized heads have the wrong shape"
     assert launches == expected and launches > 0, (launches, expected)
+    assert counts["flash_attention"] == 0, counts
     return launches, sim
 
 
-def phase_profile(torch, sim, steps=3):
-    """Where a training step's device time goes: kernel time by name over
-    a few steps of the main path (after its counts were read), and the
-    device's busy share of the window's wall time."""
+def kernel_breakdown(torch, fn, steps):
+    """Run ``fn`` ``steps`` times under the profiler: wall time, the
+    device's busy time (the union of kernel intervals: kernels that
+    overlap in time would otherwise count twice) and kernel time by
+    name."""
     from torch.profiler import ProfilerActivity, profile
-    stacked = sim._stacked
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            x, y = sim._sample_minibatches(sim.t.batch_size)
-            stacked, _ = sim._client_step(stacked, x, y)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, spans = {}, []
@@ -306,8 +351,6 @@ def phase_profile(torch, sim, steps=3):
             tot, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
             spans.append((e.time_range.start, e.time_range.end))
-    # busy = the union of kernel intervals: kernels that overlap in time
-    # (on several streams) would otherwise count twice
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
@@ -315,18 +358,303 @@ def phase_profile(torch, sim, steps=3):
             reach = end
     kernel_us = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    emit({"phase": "profile", "steps": steps,
-          "profiled_step_ms": wall_us / steps / 1e3,
-          "device_busy_ms_per_step": busy_us / steps / 1e3,
-          "device_busy_share": busy_us / wall_us,
-          "kernel_ms_sum_per_step": kernel_us / steps / 1e3,
-          "top_kernels": [{"name": k[:90], "ms_per_step": t / steps / 1e3,
-                           "share_of_kernel_time": t / kernel_us,
-                           "calls": n}
-                          for k, (t, n) in top],
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "kernel_ms_sum_per_step": kernel_us / steps / 1e3,
+            "top_kernels": [{"name": k[:90], "ms_per_step": t / steps / 1e3,
+                             "share_of_kernel_time": t / kernel_us,
+                             "calls": n} for k, (t, n) in top]}, by_name
+
+
+def phase_profile(torch, sim, steps=3):
+    """Where a training step's device time goes: kernel time by name over
+    a few steps of the CNN path (after its counts were read), and the
+    device's busy share of the window's wall time."""
+    state = {"stacked": sim._stacked}
+
+    def step():
+        x, y = sim._sample_minibatches(sim.t.batch_size)
+        state["stacked"], _ = sim._client_step(state["stacked"], x, y)
+
+    row, by_name = kernel_breakdown(torch, step, steps)
+    emit({"phase": "profile", **row,
           "quantize_ms_per_step": sum(
               t for k, (t, _) in by_name.items() if "qdq_f32" in k)
           / steps / 1e3})
+
+
+# ------------------------------------------------------------------ K2 ----
+def _flash_inputs(torch, b, s, h, kvh, d, dtype, seed):
+    """q (B,S,H,d), k and v (B,S,KVH,d): the model's layout."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(b, s, n, d, generator=gen, device="cuda")
+                 .to(dtype) for n in (h, kvh, kvh))
+
+
+def _flash_plain(ref, q, k, v, **kw):
+    return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), **kw).transpose(1, 2)
+
+
+def phase_check_flash(torch, ops, ref):
+    """K2 against its plain version on the card, on the same inputs."""
+    m = FLASH_MAIN
+    cases = []
+    for b, h, kvh, s, d in [(2, 4, 2, 256, 64), (1, 4, 4, 512, 32),
+                            (1, 2, 1, 128, 128)]:      # the reference's sweep
+        for dtype in ("float32", "bfloat16"):
+            for causal, window in [(True, 0), (True, 64), (False, 0)]:
+                cases.append(((b, s, h, kvh, d), dtype,
+                              dict(causal=causal, window=window)))
+    for dtype in ("float32", "bfloat16"):
+        cases += [((1, 256, 2, 2, 32), dtype, dict(causal=True,
+                                                   softcap=20.0)),
+                  ((2, 100, 4, 2, 64), dtype, dict(causal=True)),
+                  ((2, 100, 4, 2, 64), dtype, dict(causal=True, window=7)),
+                  ((1, 96, 2, 1, 16 if dtype == "float32" else 32), dtype,
+                   dict(causal=False, window=20))]
+    # the head bank at the reference's size (reduced gemma3: 4 heads of
+    # 64, window 64, 3 clients x 2 sequences of 32), and the serving
+    # path's shapes at full width
+    cases.append(((6, 32, 4, 4, 64), "float32", dict(causal=True,
+                                                     window=64)))
+    for name, window in FLASH_LAYERS.items():
+        cases.append(((m["b"], m["s"], m["h"], m["kvh"], m["d"]), "bfloat16",
+                      dict(causal=True, window=window)))
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, (shape, dtype, kw) in enumerate(cases):
+        q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype), i)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = _flash_plain(ref, q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol)) and got.dtype == q.dtype
+        worst[dtype] = max(worst[dtype], err)
+        rows.append({"bshkd": list(shape), "dtype": dtype, **kw,
+                     "max_abs_err": err, "ok": ok})
+    # backward: a recompute through the port's dense path, against
+    # autograd of the plain version
+    q, k, v = _flash_inputs(torch, 1, 64, 4, 2, 32, torch.float32, 99)
+    w = torch.randn_like(q)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (ops.flash_attention(*leaves, causal=True, window=16) * w).sum().backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    (_flash_plain(ref, *plain, causal=True, window=16) * w).sum().backward()
+    grad_err = max(float((a.grad - b.grad).abs().max())
+                   for a, b in zip(leaves, plain))
+    grad_ok = all(torch.allclose(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+                  for a, b in zip(leaves, plain))
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "check_flash", "kernel": "flash_attention",
+          "cases": len(rows), "tolerance": FLASH_TOL,
+          "max_abs_err": worst, "mismatches": bad,
+          "main_shapes": rows[-len(FLASH_LAYERS):],
+          "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
+    assert not bad and grad_ok, "K2 disagrees with its plain version"
+    return max(worst.values())
+
+
+def flash_work(b, s, h, kvh, d, window, bytes_per_el=2):
+    """Unmasked (q, k) pairs of causal attention with this window, the
+    flops they need (4 d each: QK^T and PV) and the bytes the function
+    must move (q, k, v read once, o written once)."""
+    pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
+    flops = 4 * d * pairs * b * h
+    nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * bytes_per_el
+    return pairs, flops, nbytes
+
+
+def phase_time_flash(torch, ops, ref):
+    """K2 at the serving path's shapes: the kernel, its plain version, its
+    bound, and one PyTorch call that computes the same function
+    (scaled_dot_product_attention with enable_gqa; a boolean band mask
+    for the sliding window).  gemma3 has no attention softcap, so the
+    functions are the same; the port never calls that function."""
+    import torch.nn.functional as F
+    m = FLASH_MAIN
+    q, k, v = _flash_inputs(torch, m["b"], m["s"], m["h"], m["kvh"], m["d"],
+                            torch.bfloat16, 7)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(m["s"], device="cuda")
+    out = {}
+    for name, window in FLASH_LAYERS.items():
+        kernel_ms = event_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=True, window=window), iters=20)
+        plain_ms = event_ms(torch, lambda: _flash_plain(
+            ref, q, k, v, causal=True, window=window), iters=5, warmup=1)
+        if window:
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, attn_mask=band, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        library_ms = event_ms(torch, lib, iters=20)
+        lib_err = float((lib().transpose(1, 2).float() - ops.flash_attention(
+            q, k, v, causal=True, window=window).float()).abs().max())
+        pairs, flops, nbytes = flash_work(m["b"], m["s"], m["h"], m["kvh"],
+                                          m["d"], window)
+        flop_ms = flops / BF16_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "time_flash", "kernel": "flash_attention",
+               "layer": name, "window": window, "bshkd": [
+                   m["b"], m["s"], m["h"], m["kvh"], m["d"]],
+               "dtype": "bfloat16", "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+               "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+               "pairs_per_head": pairs, "flops": flops, "bytes": nbytes,
+               "rate_source": "NVIDIA H100 SXM data sheet: 989 TFLOP/s "
+                              "dense bf16, 3.35 TB/s HBM3",
+               "kernel_TFLOPs": flops / kernel_ms / 1e9,
+               "library_vs_kernel_max_abs_diff": lib_err}
+        emit(row)
+        out[name] = row
+    return out
+
+
+# ------------------------------------------------------------- serving ----
+def phase_reference_serve(np):
+    """serve() at gemma3-12b.reduced(num_layers=12) (lead, scan and tail
+    stages, window 64) on the card against the same call on the CPU, with
+    the same weights and seed.  The head bank runs on 160-token sequences
+    so the window binds and the last key tile is ragged.  Tolerances:
+    float32 summation order (cuBLAS and K2 against the CPU's kernels),
+    1e-4 on the head bank and the logits, as the CPU parity tests allow
+    against the JAX package; the tokens must be equal."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    cfg = get_arch("gemma3-12b").reduced(num_layers=12)
+    params = build_model(cfg).init(make_generator(0, "cpu"))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=160, log=MetricLogger("reference_serve", sys.stderr))
+    card = serve(cfg, params=tree_map(lambda t: t.cuda(), params),
+                 device="cuda", **kw)
+    cpu = serve(cfg, params=params, device="cpu", **kw)
+    diffs = {}
+    for name in ("head_bank", "logits", "bank_losses"):
+        a = getattr(card, name).cpu().numpy()
+        b = getattr(cpu, name).numpy()
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        diffs[name] = float(np.abs(a - b).max())
+    same_tokens = card.generated.cpu().tolist() == cpu.generated.tolist()
+    emit({"phase": "reference_serve", "config": cfg.name,
+          "stages": ["lead", "scan", "tail"], "bank_seq": 160,
+          "cuda_vs_cpu_max_abs_diff": diffs, "tol": 1e-4,
+          "same_tokens": same_tokens,
+          "same_profiles": card.profiles.tolist() == cpu.profiles.tolist()})
+    assert same_tokens, "generated tokens differ between card and CPU"
+
+
+def phase_serve(torch, kernels):
+    """The LM path at gemma3-12b's full width (d_model 3840, 16/8 heads of
+    256, d_ff 15360, vocab 262144, bf16, window 1024), cut to 12 layers:
+    lead (2), scan (6) and tail (4) stages, layers 5 and 11 global.  The
+    reference's serving defaults (batch 4, 3 clients, prompt 16, 16
+    steps) with a head bank over 2048-token sequences, so the window
+    binds."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import personalized_logits, serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch("gemma3-12b"), num_layers=12)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(
+        torch, lambda: model.init(make_generator(0, "cuda")))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=2048)
+
+    reset_counts(kernels)                  # count this path's run alone
+    res, wall = sync_time(torch, lambda: serve(
+        cfg, params=params, device="cuda",
+        log=MetricLogger("serve", sys.stderr), **kw))
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the path implies one K2 launch per attention layer: the head bank's
+    # trunk forward runs all clients' sequences at once, and decoding is
+    # dense tensor code over the cache
+    expected = sum(kind in (ATTN, LOCAL_ATTN) for kind in cfg.layer_kinds())
+    finite = bool(torch.isfinite(res.logits).all()
+                  and torch.isfinite(res.bank_losses).all()
+                  and torch.isfinite(res.head_bank.float()).all())
+    shapes_ok = (tuple(res.generated.shape) == (kw["batch"], kw["steps"])
+                 and tuple(res.logits.shape) == (kw["batch"], kw["steps"],
+                                                 cfg.padded_vocab)
+                 and tuple(res.head_bank.shape) == (
+                     kw["clients"], cfg.d_model, cfg.padded_vocab))
+    tokens_ok = bool(((res.generated >= 0)
+                      & (res.generated < cfg.vocab_size)).all())
+    emit({"phase": "serve", "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "layer_kinds": list(cfg.layer_kinds()),
+              "d_model": cfg.d_model, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+              "d_ff": cfg.d_ff, "vocab": cfg.padded_vocab,
+              "window": cfg.sliding_window, "dtype": cfg.dtype, **kw},
+          "params": n_params, "init_s": init_s, "serve_wall_s": wall,
+          "head_bank_s": res.bank_seconds, "decode_s": res.decode_seconds,
+          "decode_tokens": res.tokens, "decode_tok_per_s": res.tok_per_s,
+          "bank_losses": res.bank_losses.cpu().tolist(),
+          "profiles": res.profiles.tolist(),
+          "generated": res.generated.cpu().tolist(),
+          "peak_mem_GB": peak / 1e9, "launches": counts,
+          "flash_launches_expected": expected, "finite": finite,
+          "shapes_ok": shapes_ok, "tokens_in_vocab": tokens_ok})
+    assert finite, "non-finite logits or losses"
+    assert shapes_ok and tokens_ok, "serve output has the wrong shape"
+    assert counts["flash_attention"] == expected > 0, (counts, expected)
+    assert counts["quantize"] == 0, counts
+
+    # where the device time goes (after the counts): the head bank's one
+    # trunk forward, and one decode step with its per-request heads
+    toks = torch.randint(0, cfg.vocab_size, (6, 2048), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model.apply(params, {"tokens": toks})
+
+    row, by_name = kernel_breakdown(torch, forward, 2)
+    flash_ms = sum(t for k, (t, _) in by_name.items()
+                   if "flash_fwd" in k) / 2 / 1e3
+    emit({"phase": "serve_profile", "what": "one trunk forward, 6 x 2048 "
+          "tokens, 12 layers, bf16", **row,
+          "flash_ms_per_step": flash_ms,
+          "flash_share_of_kernel_time": flash_ms
+          / row["kernel_ms_sum_per_step"]
+          if row["kernel_ms_sum_per_step"] else None})
+
+    cache = model.init_cache(kw["batch"], kw["prompt_len"] + kw["steps"],
+                             dtype=torch.float32, device="cuda")
+    bank32 = res.head_bank.to(torch.float32)
+    tok = res.generated[:, :1]
+
+    def decode():
+        with torch.no_grad():
+            h, _ = model.decode_step(params, tok, cache, kw["prompt_len"],
+                                     return_hidden=True)
+            personalized_logits(h.to(torch.float32), bank32, res.profiles)
+
+    decode()                               # warm-up outside the profile
+    row, _ = kernel_breakdown(torch, decode, 5)
+    emit({"phase": "serve_profile", "what": "one decode step, batch 4, "
+          "12 layers, per-request float32 heads", **row})
+    return counts["flash_attention"]
 
 
 def main() -> int:
@@ -336,16 +664,26 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.device import resolve_device
+    from repro_torch.hopper.flash_attention import kernel as fa_kernel
+    from repro_torch.hopper.flash_attention import ops as fa_ops
+    from repro_torch.hopper.flash_attention import ref as fa_ref
     from repro_torch.hopper.quantize import kernel, ops, ref
+    kernels = {"quantize": kernel, "flash_attention": fa_kernel}
 
     resolve_device("cuda")               # float32 numerics on the card
     phase_device(torch)
-    phase_build(kernel)
+    phase_build(kernels)
     max_err = phase_check(torch, ops, ref)
+    flash_err = phase_check_flash(torch, fa_ops, fa_ref)
     timing = phase_time(torch, ops, ref)
+    flash_timing = phase_time_flash(torch, fa_ops, fa_ref)
     phase_reference(np)
-    launches, sim = phase_fedsim(torch, np, kernel)
+    launches, sim = phase_fedsim(torch, np, kernels)
     phase_profile(torch, sim)
+    del sim
+    phase_reference_serve(np)
+    flash_launches = phase_serve(torch, kernels)
+    g, loc = flash_timing["global"], flash_timing["local"]
     emit({"kernels": [{
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/hopper/quantize/csrc/quantize.cu",
@@ -353,7 +691,21 @@ def main() -> int:
         "launches": launches, "equal": True, "max_abs_err": max_err,
         "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]})
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/hopper/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
+        "launches": flash_launches, "within_tolerance": True,
+        "tolerance": FLASH_TOL, "max_abs_err": flash_err,
+        "shape": "global layer: q (6,2048,16,256), k/v (6,2048,8,256) "
+                 "bf16, causal",
+        "ms": g["kernel_ms"], "kernel_ms": g["kernel_ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": g["library_ms"],
+        "local": {k: loc[k] for k in ("window", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

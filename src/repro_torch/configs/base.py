@@ -1,14 +1,199 @@
-"""The hierarchy and training configs of the PHSFL simulation.
+"""Config dataclasses: the model zoo's ``ModelConfig`` and the PHSFL
+hierarchy and training configs.
 
-Copies of ``HierarchyConfig`` and ``TrainConfig`` from
-``repro.configs.base`` (the port imports nothing of the reference
-package).  Fields the port does not use yet (the datacenter-mode knobs)
-stay, so one config means the same run on both sides.
+Copies of ``ModelConfig`` (with its block kinds and sub-configs),
+``HierarchyConfig`` and ``TrainConfig`` from ``repro.configs.base`` (the
+port imports nothing of the reference package).  Fields the port does not
+use yet (the sub-configs of block kinds it cannot run, the datacenter-mode
+knobs) stay, so one config means the same run on both sides.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+# --------------------------------------------------------------------------
+# Block kinds (per-layer), cycled from ``ModelConfig.block_pattern``
+# --------------------------------------------------------------------------
+ATTN = "attn"                # global full attention
+LOCAL_ATTN = "local_attn"    # sliding-window attention
+MLA_ATTN = "mla"             # DeepSeek-V2 multi-head latent attention
+RGLRU = "rglru"              # RecurrentGemma RG-LRU recurrent block
+SLSTM = "slstm"              # xLSTM sLSTM block
+MLSTM = "mlstm"              # xLSTM mLSTM block
+
+BLOCK_KINDS = (ATTN, LOCAL_ATTN, MLA_ATTN, RGLRU, SLSTM, MLSTM)
+
+RECURRENT_KINDS = (RGLRU, SLSTM, MLSTM)  # O(1)-state decode blocks
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0
+    router_aux_loss: float = 0.01
+    # layers whose FFN is dense instead of MoE (e.g. deepseek first layer)
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention [arXiv:2405.04434]."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (Seamless-M4T backbone)."""
+    num_encoder_layers: int = 12
+    # encoder input is a stubbed modality frontend: precomputed frame embeddings
+    max_source_len: int = 1024
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """Vision frontend stub (Qwen2-VL): patch embeddings are precomputed."""
+    num_patch_tokens: int = 1024
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)  # t/h/w split of head_dim/2
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block geometry [arXiv:2405.04517]."""
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.3333333
+    conv_kernel: int = 4
+    num_heads: int = 4
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block [arXiv:2402.19427]."""
+    lru_width: int = 0          # 0 -> d_model
+    conv_kernel: int = 4
+    block_width_multiplier: float = 3.0  # gated-MLP expansion in recurrent block
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    block_pattern: tuple[str, ...] = (ATTN,)
+    # attention details
+    rope_theta: float = 10000.0
+    local_rope_theta: float = 10000.0
+    sliding_window: int = 0          # used by LOCAL_ATTN layers
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    attn_bias: bool = False
+    qk_norm: bool = False
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # norm / act / embedding
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "silu"                # silu | gelu
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma-style sqrt(d_model) embedding scale
+    # ---- PHSFL split (the paper's technique) ----
+    n_client_layers: int = 2         # blocks in the client-side model w_0
+    head_name: str = "lm_head"       # pytree key of the frozen head w_{1,hd}
+    # numerics
+    dtype: str = "bfloat16"          # compute/param dtype for the big runs
+    # citation for the config values
+    source: str = ""
+
+    # ----- derived helpers -----
+    def layer_kinds(self) -> tuple[str, ...]:
+        """Expand block_pattern cyclically over num_layers."""
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256 so TP=16 sharding divides evenly."""
+        pad_to = 256
+        return ((self.vocab_size + pad_to - 1) // pad_to) * pad_to
+
+    def reduced(self, *, num_layers: int = 2, d_model: int = 256,
+                num_heads: int = 4, d_ff: int = 512, vocab_size: int = 512,
+                max_experts: int = 4) -> "ModelConfig":
+        """A tiny same-family variant for CPU smoke tests."""
+        head_dim = max(d_model // num_heads, 16)
+        kv = max(1, min(self.num_kv_heads, num_heads))
+        changes = dict(
+            name=self.name + "-smoke",
+            num_layers=num_layers,
+            d_model=d_model,
+            num_heads=num_heads,
+            num_kv_heads=kv,
+            head_dim=head_dim,
+            d_ff=d_ff if self.d_ff else 0,
+            vocab_size=vocab_size,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            n_client_layers=1,
+            dtype="float32",
+        )
+        if self.moe is not None:
+            ne = min(self.moe.num_experts, max_experts)
+            changes["moe"] = MoEConfig(
+                num_experts=ne,
+                top_k=min(self.moe.top_k, ne),
+                d_ff_expert=128,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_ff_shared=128 if self.moe.num_shared_experts else 0,
+                first_dense_layers=min(self.moe.first_dense_layers, 1),
+                d_ff_dense=128 if self.moe.first_dense_layers else 0,
+            )
+        if self.mla is not None:
+            changes["mla"] = MLAConfig(
+                q_lora_rank=64, kv_lora_rank=32,
+                qk_nope_head_dim=head_dim, qk_rope_head_dim=16,
+                v_head_dim=head_dim)
+        if self.encdec is not None:
+            changes["encdec"] = EncDecConfig(num_encoder_layers=num_layers,
+                                             max_source_len=32)
+        if self.vlm is not None:
+            half = head_dim // 2
+            quarter = half // 4
+            changes["vlm"] = VLMConfig(
+                num_patch_tokens=16,
+                mrope_sections=(half - 2 * quarter, quarter, quarter))
+        if self.xlstm is not None:
+            changes["xlstm"] = XLSTMConfig(num_heads=2)
+        if self.rglru is not None:
+            changes["rglru"] = RGLRUConfig(lru_width=d_model)
+        return dataclasses.replace(self, **changes)
 
 
 # --------------------------------------------------------------------------

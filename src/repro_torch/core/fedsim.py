@@ -20,9 +20,9 @@ the dataset stays resident on the device, so a step copies only the
 drawn indices to it.
 
 The wireless scheduler, population mode and staleness-weighted
-aggregation are slice 2 of the port (ROADMAP.md) and raise here; saving
-and restoring on disk wait too (``state_dict``/``load_state_dict`` work
-in memory).
+aggregation are the port's wireless slice (ROADMAP.md) and raise here;
+saving and restoring on disk wait too (``state_dict``/``load_state_dict``
+work in memory).
 """
 
 from __future__ import annotations
@@ -151,15 +151,15 @@ class FedSim:
                  population=None, device=None):
         if population is not None:
             raise NotImplementedError(
-                "population mode is part of the wireless slice (slice 2 of "
-                "the port, ROADMAP.md)")
+                "population mode is part of the port's wireless slice "
+                "(ROADMAP.md)")
         if wireless is not None and (
                 wireless.model != "ideal"
                 or getattr(wireless, "staleness_lambda", 0.0) > 0.0):
             raise NotImplementedError(
                 "non-ideal wireless networks and staleness-weighted "
-                "aggregation are the wireless slice (slice 2 of the port, "
-                "ROADMAP.md); this slice runs the ideal network")
+                "aggregation are the port's wireless slice (ROADMAP.md); "
+                "this slice runs the ideal network")
         if data.num_clients != hcfg.num_clients:
             raise ValueError(f"data has {data.num_clients} clients, the "
                              f"hierarchy {hcfg.num_clients}")

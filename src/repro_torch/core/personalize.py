@@ -1,0 +1,69 @@
+"""Personalization by head fine-tuning (paper Sec. III-B, Eq. 18), for the
+LM head (``repro.core.personalize``).
+
+After global training produces w*, each client fine-tunes ONLY the head
+for K SGD steps on its local data; the trunk stays exactly w*.  Since the
+trunk is frozen and shared, the final hidden states of every client's
+batch come from ONE trunk forward over all C x B sequences (the
+reference's ``vmap`` over clients, with the trunk shared), under
+``torch.no_grad``; each client's K head steps then run on its slice of
+them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.registry import Model
+
+
+def head_loss(head_w, cfg: ModelConfig, hidden, labels):
+    """Cross-entropy using an explicit head weight (B,S,D)x(D,V)."""
+    return tf_mod.lm_loss({"lm_head": {"w": head_w}}, cfg, hidden, labels)
+
+
+def _client_hidden(model: Model, params, tokens):
+    """Final hidden states (C,B,S,D) of (C,B,S) tokens, one trunk pass."""
+    c, b, s = tokens.shape
+    with torch.no_grad():
+        hidden, _ = model.apply(params, {"tokens": tokens.reshape(c * b, s)})
+    return hidden.reshape(c, b, s, -1)
+
+
+def personalize_head_bank(model: Model, params, batches, tcfg: TrainConfig):
+    """Fine-tune one head per client from cached hidden states.
+
+    batches: {"tokens": (C,B,S), "labels": (C,B,S)} tensors.  Returns the
+    head bank (C, D, V) in the head's dtype and per-client losses (C, K)
+    float32 (the loss before each step).
+    """
+    cfg = model.cfg
+    hidden = _client_hidden(model, params, batches["tokens"])
+    w0 = params["lm_head"]["w"].detach()
+    c = hidden.shape[0]
+    bank = torch.empty((c, *w0.shape), dtype=w0.dtype, device=w0.device)
+    losses = torch.empty((c, tcfg.finetune_steps), dtype=torch.float32,
+                         device=w0.device)
+    for ci in range(c):
+        w = w0
+        for step in range(tcfg.finetune_steps):
+            w = w.detach().requires_grad_(True)
+            loss = head_loss(w, cfg, hidden[ci], batches["labels"][ci])
+            (g,) = torch.autograd.grad(loss, [w])
+            w = w.detach() - tcfg.finetune_lr * g.to(w.dtype)
+            losses[ci, step] = loss.detach()
+        bank[ci] = w
+    return bank, losses
+
+
+def personalized_eval(model: Model, params, head_bank, batches):
+    """Per-client loss (C,) of the personalized models on held-out
+    batches."""
+    hidden = _client_hidden(model, params, batches["tokens"])
+    with torch.no_grad():
+        return torch.stack([
+            head_loss(head_bank[ci], model.cfg, hidden[ci],
+                      batches["labels"][ci])
+            for ci in range(hidden.shape[0])])

@@ -4,6 +4,7 @@ from repro_torch.data.synthetic import (
     SyntheticImageDataset,
     make_federated_image_data,
     make_image_dataset,
+    synthetic_token_batch,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "SyntheticImageDataset",
     "make_federated_image_data",
     "make_image_dataset",
+    "synthetic_token_batch",
 ]

@@ -9,8 +9,8 @@ directly comparable to CIFAR-10, but every distributional claim
 (generalized vs personalized, Dir(0.1) vs Dir(0.5), PHSFL vs HSFL) is
 evaluated on identical footing across algorithms.
 
-A numpy copy of the image half of ``repro.data.synthetic``: the same seed
-gives the same arrays on both sides.
+A numpy copy of ``repro.data.synthetic``: the same seed gives the same
+arrays on both sides.
 """
 
 from __future__ import annotations
@@ -112,3 +112,12 @@ def make_federated_image_data(num_clients: int, alpha: float, *,
     te = partition_like(ds.y_test, prop, seed=seed + 11)
     return FederatedImageData(ds, tr, te, alpha)
 
+
+def synthetic_token_batch(rng: np.ndarray | int, batch: int, seq_len: int,
+                          vocab: int) -> dict[str, np.ndarray]:
+    """Markov-ish synthetic token stream for LM smoke tests."""
+    r = np.random.default_rng(rng)
+    base = r.integers(0, vocab, size=(batch, seq_len), dtype=np.int32)
+    # induce local correlation: every other token repeats previous +1 mod vocab
+    base[:, 1::2] = (base[:, 0:-1:2] + 1) % vocab
+    return {"tokens": base, "labels": np.roll(base, -1, axis=1)}

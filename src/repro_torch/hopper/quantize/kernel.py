@@ -6,12 +6,10 @@ CUDA source is ``csrc/quantize.cu``, which states the kernel's bound on
 the H100 (memory: 12 bytes moved per element) and what its design does
 about it (one streaming pass, 16-byte accesses).
 
-The kernel is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface and loaded with ``ctypes``: no PyTorch headers,
-so the build takes seconds.  The library goes into ``build/`` beside this
-file, named by a hash of the source and flags, so an edited source never
-meets a stale build.  Nothing here touches CUDA or ``nvcc`` at import
-time, so the CPU-only tests import the module.
+The kernel is built by ``nvcc`` at first use into ``build/`` beside this
+file and loaded with ``ctypes`` (``repro_torch.hopper.nvcc``).  Nothing
+here touches CUDA or ``nvcc`` at import time, so the CPU-only tests
+import the module.
 
 ``launches`` counts the kernel launches of this process; callers reset
 it to 0 before the run they want to count.
@@ -20,24 +18,19 @@ it to 0 before the run they want to count.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
+
+from repro_torch.hopper import nvcc
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quantize.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn in the source:
 # no multiply-add in the file may be contracted, or the result drifts from
 # the plain version by one rounding.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*nvcc.ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0
 build_log = ""           # nvcc's output (ptxas register/spill report)
@@ -45,47 +38,16 @@ build_seconds = 0.0      # wall time of the last build (0 when cached)
 _lib = None
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME); "
-                       "the quantize kernel is built from source at first "
-                       "use")
-
-
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libquantize_{digest[:16]}.so"
+    return nvcc.library_path(SOURCE, NVCC_FLAGS, BUILD_DIR, "libquantize")
 
 
 def build() -> Path:
     """Compile the kernel unless this source's library is already built."""
     global build_log, build_seconds
-    out = library_path()
-    if out.exists():
-        build_seconds = 0.0
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent builder never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    out, log, build_seconds = nvcc.build(SOURCE, NVCC_FLAGS, BUILD_DIR,
+                                         "libquantize")
+    build_log = log or build_log
     return out
 
 

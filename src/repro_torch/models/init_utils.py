@@ -1,7 +1,13 @@
-"""Parameter-creation helpers (``repro.models.init_utils``, the part the
-CNN needs)."""
+"""Parameter-creation helpers (``repro.models.init_utils``).
+
+Every draw happens on its generator's device.  A model at full width
+holds billions of parameters, so the LM path draws them on the card with
+a CUDA generator: drawing on the host and copying would take minutes.
+"""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,3 +21,30 @@ def truncated_normal(gen: torch.Generator, shape, scale,
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     return (t * scale).to(dtype)
+
+
+def dense(gen: torch.Generator, d_in: int, d_out, *, bias: bool = False,
+          dtype=torch.float32, scale: float | None = None) -> dict:
+    """Linear layer params (in, *out); d_out may be a tuple for
+    multi-dim outputs."""
+    out_dims = d_out if isinstance(d_out, tuple) else (d_out,)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d_in)
+    params = {"w": truncated_normal(gen, (d_in, *out_dims), scale, dtype)}
+    if bias:
+        params["b"] = torch.zeros(out_dims, dtype=dtype, device=gen.device)
+    return params
+
+
+def norm(d: int, kind: str, dtype=torch.float32, device="cpu") -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device),
+                "bias": torch.zeros(d, dtype=dtype, device=device)}
+    raise ValueError(kind)
+
+
+def embedding(gen: torch.Generator, vocab: int, d: int,
+              dtype=torch.float32) -> dict:
+    return {"table": truncated_normal(gen, (vocab, d), 1.0, dtype)}

@@ -1,0 +1,273 @@
+"""Decoder-LM assembly (``repro.models.transformer``), for the block kinds
+of the serving slice: global and sliding-window attention with a dense
+gated MLP.
+
+Layers are grouped into *stages* as in the reference:
+
+    lead  — unscanned leading layers (the PHSFL client-side layers)
+    scan  — (pattern of len p) x (repeats k), params stacked on a leading
+            'stack' dim; the reference's ``lax.scan`` is a loop over it
+    tail  — unscanned remainder
+
+so parameter trees carry across unchanged.  The LM head is always a
+separate parameter ("lm_head"): the PHSFL frozen random classifier.
+
+Other block kinds (MLA, MoE, RG-LRU, xLSTM) raise ``NotImplementedError``
+naming the slice that brings them.  The reference's activation
+checkpointing of the trunk (``remat``) is a training knob and waits for
+the LM training slice; ``lm_loss`` keeps its per-chunk recompute.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
+                                      SLSTM, ModelConfig)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.init_utils import dense, embedding, norm
+from repro_torch.models.layers import apply_norm, mlp_apply, mlp_init, softcap
+from repro_torch.utils.tree import tree_map
+
+LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
+
+_LATER = {
+    MLA_ATTN: "MLA attention comes with a later LM slice",
+    RGLRU: "the RG-LRU block comes with the K4 (RG-LRU scan) slice",
+    SLSTM: "the sLSTM block comes with the K3 (mLSTM chunk) slice",
+    MLSTM: "the mLSTM block comes with the K3 (mLSTM chunk) slice",
+}
+
+
+# ------------------------------------------------------------- stages ------
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    which: str                 # "lead" | "scan" | "tail"
+    layer_ids: tuple[int, ...] # absolute layer indices (first repeat for scan)
+    repeats: int = 1
+
+
+def compute_stages(cfg: ModelConfig) -> list[Stage]:
+    kinds = cfg.layer_kinds()
+    L = cfg.num_layers
+    p = len(cfg.block_pattern)
+    # lead layers are unscanned: structurally distinct layers (deepseek's
+    # first dense-FFN layer) and the PHSFL client-side layers
+    lead = max(cfg.moe.first_dense_layers if cfg.moe else 0,
+               cfg.n_client_layers)
+    lead = min(lead, L)
+    k = (L - lead) // p
+    rem = (L - lead) - k * p
+    stages = []
+    if lead:
+        stages.append(Stage("lead", tuple(range(lead))))
+    if k:
+        first = tuple(range(lead, lead + p))
+        for r in range(k):               # the pattern must actually repeat
+            for j in range(p):
+                assert kinds[lead + r * p + j] == kinds[lead + j], (r, j)
+        stages.append(Stage("scan", first, repeats=k))
+    if rem:
+        stages.append(Stage("tail", tuple(range(lead + k * p, L))))
+    return stages
+
+
+def _layer_kind(cfg: ModelConfig, layer_id: int) -> str:
+    kind = cfg.layer_kinds()[layer_id]
+    if kind in _LATER:
+        raise NotImplementedError(f"layer {layer_id} of {cfg.name} is "
+                                  f"{kind!r}: {_LATER[kind]}")
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name} has MoE FFNs: the MoE "
+                                  f"block comes with a later LM slice")
+    return kind
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == LOCAL_ATTN else 0
+
+
+def _rope_theta_for(cfg: ModelConfig, kind: str) -> float:
+    return cfg.local_rope_theta if kind == LOCAL_ATTN else cfg.rope_theta
+
+
+def _dtype(cfg: ModelConfig, dtype):
+    return dtype or getattr(torch, cfg.dtype)
+
+
+# -------------------------------------------------------- layer params -----
+def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
+               dtype=None) -> dict:
+    dtype = _dtype(cfg, dtype)
+    _layer_kind(cfg, layer_id)        # raises for kinds the slice lacks
+    return {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
+            "ln2": norm(cfg.d_model, cfg.norm, dtype, gen.device),
+            "attn": attn_mod.attn_init(gen, cfg, dtype),
+            "mlp": mlp_init(gen, cfg, dtype=dtype)}
+
+
+# -------------------------------------------------------- layer apply ------
+def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
+                impl: str = "auto"):
+    """Full-sequence layer: pre-norm attention and MLP, both residual."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    x = x + attn_mod.attn_apply(
+        p["attn"], cfg, h, window=_window(cfg, kind),
+        rope_theta=_rope_theta_for(cfg, kind),
+        softcap=cfg.attn_logit_softcap, positions=positions, impl=impl)
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp_apply(p["mlp"], h, cfg.act)
+
+
+def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
+    """One-token decode through a layer.  Returns (x, cache)."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    y, cache = attn_mod.decode_attend(
+        p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
+        rope_theta=_rope_theta_for(cfg, kind),
+        softcap=cfg.attn_logit_softcap)
+    x = x + y
+    h = apply_norm(p["ln2"], x, cfg.norm)
+    return x + mlp_apply(p["mlp"], h, cfg.act), cache
+
+
+def init_layer_cache(cfg: ModelConfig, layer_id: int, batch: int,
+                     max_len: int, dtype=torch.bfloat16, device="cpu"):
+    kind = _layer_kind(cfg, layer_id)
+    return attn_mod.init_kv_cache(cfg, batch, max_len,
+                                  window=_window(cfg, kind), dtype=dtype,
+                                  device=device)
+
+
+# --------------------------------------------------------- whole model -----
+def init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
+    """Random parameters drawn from ``gen`` on its device, in the
+    reference's tree layout (scan stages stacked on a leading dim)."""
+    dtype = _dtype(cfg, dtype)
+    params = {
+        "embed": embedding(gen, cfg.padded_vocab, cfg.d_model, dtype),
+        "final_norm": norm(cfg.d_model, cfg.norm, dtype, gen.device),
+        # the PHSFL head: randomly initialized; frozen during global training
+        "lm_head": dense(gen, cfg.d_model, cfg.padded_vocab, dtype=dtype),
+    }
+    for si, st in enumerate(compute_stages(cfg)):
+        if st.which == "scan":
+            blocks = {}
+            for j, lid in enumerate(st.layer_ids):
+                reps = [init_layer(gen, cfg, lid + r * len(st.layer_ids),
+                                   dtype) for r in range(st.repeats)]
+                blocks[f"b{j}"] = tree_map(lambda *a: torch.stack(a), *reps)
+            params[f"stage{si}"] = blocks
+        else:
+            params[f"stage{si}"] = {
+                f"b{j}": init_layer(gen, cfg, lid, dtype)
+                for j, lid in enumerate(st.layer_ids)}
+    return params
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    x = params["embed"]["table"][tokens]
+    if cfg.embed_scale:
+        # sqrt(d_model) rounded to x's dtype before the product, as the
+        # reference does (62.0, not 61.97, in bfloat16 at d_model 3840)
+        x = x * torch.tensor(math.sqrt(cfg.d_model),
+                             dtype=torch.float32).to(x.dtype)
+    return x
+
+
+def _stage_layers(cfg: ModelConfig, st: Stage, sp):
+    """(params, kind) of every layer of a stage, in order."""
+    kinds = [_layer_kind(cfg, lid) for lid in st.layer_ids]
+    for r in range(st.repeats):
+        pr = tree_map(lambda a: a[r], sp) if st.which == "scan" else sp
+        for j, kind in enumerate(kinds):
+            yield (r, j), pr[f"b{j}"], kind
+
+
+def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+    """Full-sequence forward to final hidden states (B,S,D).
+
+    batch: {"tokens": (B,S) integer tensor}.  Returns (hidden, aux) with
+    aux the reference's MoE auxiliary loss, 0 for these block kinds.
+    """
+    x = embed_tokens(params, cfg, batch["tokens"])
+    for si, st in enumerate(compute_stages(cfg)):
+        for _, p, kind in _stage_layers(cfg, st, params[f"stage{si}"]):
+            x = apply_layer(p, cfg, kind, x, impl=impl)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_from_hidden(params, cfg: ModelConfig, hidden):
+    lg = hidden @ params["lm_head"]["w"]
+    return softcap(lg.to(torch.float32), cfg.final_logit_softcap)
+
+
+def _chunk_loss(w, h, labels, cap: float):
+    lg = softcap((h @ w).to(torch.float32), cap)           # (B,c,V) f32
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = lg.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
+def lm_loss(params, cfg: ModelConfig, hidden, labels):
+    """Memory-bounded cross-entropy: logits materialized per seq chunk of
+    512 tokens and recomputed in backward (``jax.checkpoint`` in the
+    reference), so one chunk's float32 logits are live at a time."""
+    b, s, _ = hidden.shape
+    chunk = LOSS_CHUNK if s % LOSS_CHUNK == 0 else s
+    w = params["lm_head"]["w"]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        total = total + checkpoint(
+            _chunk_loss, w, hidden[:, c0:c0 + chunk],
+            labels[:, c0:c0 + chunk], cfg.final_logit_softcap,
+            use_reentrant=False)
+    return total / (b * s)
+
+
+# --------------------------------------------------------------- decode ----
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu") -> dict:
+    cache = {}
+    for si, st in enumerate(compute_stages(cfg)):
+        blocks = {}
+        for j, lid in enumerate(st.layer_ids):
+            c = init_layer_cache(cfg, lid, batch, max_len, dtype, device)
+            if st.which == "scan":
+                c = tree_map(lambda a: a.expand(st.repeats, *a.shape)
+                             .clone(), c)
+            blocks[f"b{j}"] = c
+        cache[f"stage{si}"] = blocks
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
+                return_hidden: bool = False):
+    """One decode step.  token: (B,1) integer tensor; index: current
+    position.  Writes ``cache`` in place.  Returns (logits (B,1,V), cache);
+    with return_hidden the first element is the final hidden state
+    (B,1,D) instead (the personalized-head serving path)."""
+    x = embed_tokens(params, cfg, token)
+    for si, st in enumerate(compute_stages(cfg)):
+        sc = cache[f"stage{si}"]
+        for (r, j), p, kind in _stage_layers(cfg, st, params[f"stage{si}"]):
+            c = sc[f"b{j}"]
+            if st.which == "scan":
+                c = tree_map(lambda a: a[r], c)   # views: written in place
+            x, _ = decode_layer(p, cfg, kind, x, c, index)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    if return_hidden:
+        return x, cache
+    return logits_from_hidden(params, cfg, x), cache
+
+
+def prefill(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+    """Full-sequence forward: logits of the last position, and the hidden
+    states (the reference fills no cache here either)."""
+    hidden, _ = apply(params, cfg, batch, impl=impl)
+    return logits_from_hidden(params, cfg, hidden[:, -1:, :]), hidden

@@ -1,0 +1,54 @@
+"""Line-oriented metric sinks (``repro.telemetry.sinks``, without its
+mirror into the telemetry metrics registry, which the port has not yet).
+
+:class:`MetricLogger` prints ``[name] {json}`` lines; values keep their
+JSON-native types (ints stay ints, bools stay bools, lists stay lists).
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+
+def json_safe(v):
+    """Coerce ``v`` to a JSON-native value, preserving its type.
+
+    bool/int/float/str/None pass through; numpy scalars unwrap via
+    ``item()``; arrays and sequences become lists (element-wise coerced);
+    dicts coerce their values; anything else falls back to ``str``.
+    """
+    if v is None or isinstance(v, (bool, int, float, str)):
+        return v
+    if hasattr(v, "item") and not hasattr(v, "__len__"):
+        try:
+            return json_safe(v.item())            # numpy / 0-d array scalar
+        except (TypeError, ValueError):
+            pass
+    if hasattr(v, "tolist"):
+        return json_safe(v.tolist())              # ndarray -> nested lists
+    if isinstance(v, dict):
+        return {str(k): json_safe(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [json_safe(x) for x in v]
+    return str(v)
+
+
+class MetricLogger:
+    """Tiny structured logger (stdout, no deps)."""
+
+    def __init__(self, name: str = "repro", stream=None):
+        self.name = name
+        self.stream = stream or sys.stdout
+        self._t0 = time.time()
+
+    def log(self, step: int | None = None, **metrics):
+        rec = {"t": round(time.time() - self._t0, 3)}
+        if step is not None:
+            rec["step"] = step
+        for k, v in metrics.items():
+            rec[k] = json_safe(v)
+        print(f"[{self.name}] " + json.dumps(rec), file=self.stream,
+              flush=True)
+        return rec

@@ -166,11 +166,11 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu():
 
 def test_later_slices_raise():
     from repro.configs.base import WirelessConfig
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="wireless slice"):
         _port_sim(wireless=WirelessConfig(model="rayleigh"))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="wireless slice"):
         _port_sim(wireless=WirelessConfig(staleness_lambda=0.5))
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="wireless slice"):
         _port_sim(population=object())
     # the ideal network is this slice's own
     _port_sim(wireless=WirelessConfig(model="ideal"))

@@ -1,0 +1,155 @@
+"""Port parity for ``models/transformer.py`` and ``models/registry.py`` at
+``gemma3-12b.reduced(num_layers=12)``: lead, scan and tail stages, five
+sliding-window layers (window 64) to each global one, qk-norm, gelu and
+the embedding scale, with the reference's own ``init`` carried in.
+
+Tolerances (float32): 1e-4 on the hidden states and logits after twelve
+layers (summation order compounds through the residual stream), 1e-5 on
+the loss and 1e-4 on its gradient.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_arch as j_get_arch
+from repro.models import build_model as j_build
+from repro.models import transformer as jt
+from repro_torch.configs.registry import get_arch
+from repro_torch.convert import params_from_numpy
+from repro_torch.hopper.flash_attention import kernel
+from repro_torch.models.registry import build_model
+from repro_torch.models import transformer as tt
+from repro_torch.utils.tree import tree_leaves_with_path
+
+TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def setup():
+    j_cfg = j_get_arch("gemma3-12b").reduced(num_layers=12)
+    cfg = get_arch("gemma3-12b").reduced(num_layers=12)
+    jm, tm = j_build(j_cfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int32)
+    return j_cfg, cfg, jm, tm, jp, tp, toks
+
+
+def test_stages_and_param_tree_match_reference(setup):
+    j_cfg, cfg, jm, tm, jp, tp, _ = setup
+    assert ([(s.which, s.layer_ids, s.repeats) for s in tt.compute_stages(cfg)]
+            == [(s.which, s.layer_ids, s.repeats)
+                for s in jt.compute_stages(j_cfg)])
+    assert [s.which for s in tt.compute_stages(cfg)] == ["lead", "scan",
+                                                         "tail"]
+    ours = tm.init(torch.Generator().manual_seed(0))
+    shapes = {p: (tuple(t.shape), t.dtype)
+              for p, t in tree_leaves_with_path(ours)}
+    want = {p: (tuple(t.shape), t.dtype)
+            for p, t in tree_leaves_with_path(tp)}
+    assert shapes == want
+
+
+def test_apply_matches_reference(setup):
+    j_cfg, cfg, jm, tm, jp, tp, toks = setup
+    want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    before = kernel.launches
+    got, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)})
+    assert kernel.launches == before and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    dense, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)},
+                        impl="dense")
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+def test_lm_loss_and_head_gradient_match_reference(setup):
+    """A 1024-token sequence: two 512-token loss chunks."""
+    j_cfg, cfg, jm, tm, jp, tp, _ = setup
+    r = np.random.default_rng(2)
+    hidden = r.normal(size=(2, 1024, cfg.d_model)).astype(np.float32)
+    labels = r.integers(0, cfg.vocab_size, (2, 1024)).astype(np.int32)
+
+    def j_loss(w):
+        return jt.lm_loss({"lm_head": {"w": w}}, j_cfg, jnp.asarray(hidden),
+                          jnp.asarray(labels))
+
+    want, want_g = jax.value_and_grad(j_loss)(jp["lm_head"]["w"])
+    w = tp["lm_head"]["w"].clone().requires_grad_()
+    got = tt.lm_loss({"lm_head": {"w": w}}, cfg, torch.from_numpy(hidden),
+                     torch.from_numpy(labels))
+    (g,) = torch.autograd.grad(got, [w])
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(want_g), rtol=TOL,
+                               atol=1e-7)
+
+
+def test_model_loss_and_prefill(setup):
+    j_cfg, cfg, jm, tm, jp, tp, toks = setup
+    labels = np.roll(toks, -1, axis=1)
+    want = jm.loss(jp, {"tokens": jnp.asarray(toks),
+                        "labels": jnp.asarray(labels)})
+    got = tm.loss(tp, {"tokens": torch.from_numpy(toks),
+                       "labels": torch.from_numpy(labels)})
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    jl, jh = jt.prefill(jp, j_cfg, {"tokens": jnp.asarray(toks)})
+    tl, th = tt.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+
+
+def test_decode_loop_matches_reference(setup):
+    """70 one-token steps (past the window of 64, so the local layers'
+    rings wrap), logits at every step, and the hidden-state form."""
+    j_cfg, cfg, jm, tm, jp, tp, toks = setup
+    steps = 70
+    jc = jm.init_cache(2, steps, dtype=jnp.float32)
+    tc = tm.init_cache(2, steps, dtype=torch.float32)
+    assert ({p: tuple(t.shape) for p, t in tree_leaves_with_path(tc)}
+            == {p: tuple(t.shape) for p, t in tree_leaves_with_path(
+                jax.tree.map(np.asarray, jc))})
+    step = jax.jit(jm.decode_step)
+    for i in range(steps):
+        tok = toks[:, i:i + 1]
+        jl, jc = step(jp, jnp.asarray(tok), jc, jnp.asarray(i, jnp.int32))
+        tl, tc = tm.decode_step(tp, torch.from_numpy(tok), tc, i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {i}")
+    jh, _ = jm.decode_step(jp, jnp.asarray(toks[:, :1]), jc,
+                           jnp.asarray(steps - 1, jnp.int32),
+                           return_hidden=True)
+    th, _ = tm.decode_step(tp, torch.from_numpy(toks[:, :1]), tc, steps - 1,
+                           return_hidden=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL,
+                               atol=TOL)
+
+
+def test_embed_scale_rounds_to_the_dtype_first():
+    """In bfloat16 at d_model 3840 the scale is 62.0, as the reference
+    casts sqrt(3840) = 61.97 to x's dtype before the product."""
+    cfg = dataclasses.replace(get_arch("gemma3-12b").reduced(),
+                              d_model=3840, dtype="bfloat16")
+    table = torch.ones(4, 3840, dtype=torch.bfloat16)
+    x = tt.embed_tokens({"embed": {"table": table}}, cfg,
+                        torch.tensor([[1, 2]]))
+    assert x.dtype == torch.bfloat16 and float(x[0, 0, 0]) == 62.0
+    jx = jt.embed_tokens({"embed": {"table": jnp.ones((4, 3840),
+                                                      jnp.bfloat16)}},
+                         j_get_arch("gemma3-12b"), jnp.asarray([[1, 2]]))
+    assert float(jx[0, 0, 0]) == 62.0
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("xlstm-350m", "K3"), ("recurrentgemma-2b", "K4"),
+    ("olmoe-1b-7b", "MoE"), ("deepseek-v2-236b", "MLA")])
+def test_other_block_kinds_raise_naming_their_slice(arch, match):
+    cfg = j_get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match=match):
+        tt.init(torch.Generator().manual_seed(0), cfg)
