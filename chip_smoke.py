@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's three paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
 The paths: PHSFL training of the paper's CNN (``FedSim``, kernel K1, the
-quantize-dequantize) and personalized LM serving on gemma3-12b
-(``launch/serve.py``, kernel K2, flash attention).  Phases, each printing
-one JSON line (any mismatch or fault exits non-zero; no phase's failure
-is caught):
+quantize-dequantize), personalized LM serving on gemma3-12b
+(``launch/serve.py``, kernel K2, flash attention) and personalized LM
+serving on xlstm-350m (the same entry point, kernel K3, the chunkwise
+mLSTM).  Phases, each printing one JSON line (any mismatch or fault
+exits non-zero; no phase's failure is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
    it (also printed as a line of its own), torch and CUDA versions;
@@ -40,7 +41,25 @@ is caught):
     of them global), the reference's serving defaults with a head bank
     over 2048-token sequences, counts set to 0 just before and read just
     after; then where one trunk forward's device time goes;
-12. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+12. check_mlstm: K3 against its plain version on the card (the
+    reference's sweep, the reduced model's heads of 256, the serving
+    shape (6,2048,4,512) in float32 and bfloat16, ragged lengths; 2e-4 in
+    float32, one bfloat16 step more in bfloat16), and its backward
+    against autograd of the plain version;
+13. time_mlstm: K3 at the serving shape, its plain version and its bound;
+14. reference_serve_xlstm: ``serve()`` at
+    ``xlstm-350m.reduced(num_layers=6)`` on the card against the same
+    call on the CPU, same weights and seed;
+15. serve_xlstm: the LM path at xlstm-350m's published config whole (24
+    layers, d_model 1024, 4 heads of 512, vocab 50304, bf16), the
+    reference's serving defaults with a head bank over 2048-token
+    sequences, counts set to 0 just before and read just after; then
+    where one trunk forward's time goes (device kernels, and host-clock
+    seconds by block kind over three repeats on either side of the
+    profile, with the main thread's CPU seconds and involuntary context
+    switches: K3's mLSTM layers against the sLSTM's Python loop over
+    time) and one decode step's;
+16. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
     line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -52,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +100,19 @@ CHECK_SHAPES = [(1, 7), (1, 16 * 16 * 16 * 64), MAIN_SHAPE,
 FLASH_MAIN = dict(b=6, s=2048, h=16, kvh=8, d=256)
 FLASH_LAYERS = {"global": 0, "local": 1024}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# K3 on the xlstm-350m serving path: the head bank's one trunk forward over
+# 3 clients x 2 sequences x 2048 tokens, 4 heads of dh = 2048 / 4 = 512,
+# q, k, v (B,S,H,dh) in bf16, gates (B,S,H) float32
+MLSTM_MAIN = dict(b=6, s=2048, h=4, dh=512)
+# the reference's 2e-4 (tests/test_kernels.py:104) in float32; bfloat16
+# output rounded once on both sides: one bf16 step (2^-7 relative) more
+MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+             "bfloat16": dict(rtol=2.0 ** -7, atol=2e-4)}
+FP32_FLOPS = 67e12       # float32 outside the tensor cores, same sheet
+# host-clock repeats of the xlstm trunk forward on either side of its
+# profile (its time spreads widely)
+FORWARD_REPEATS = 3
 
 
 def emit(obj) -> None:
@@ -327,30 +360,39 @@ def phase_fedsim(torch, np, kernels):
     assert finite, "non-finite metrics"
     assert shapes_ok, "personalized heads have the wrong shape"
     assert launches == expected and launches > 0, (launches, expected)
-    assert counts["flash_attention"] == 0, counts
+    assert counts["flash_attention"] == counts["mlstm_chunk"] == 0, counts
     return launches, sim
 
 
 def kernel_breakdown(torch, fn, steps):
-    """Run ``fn`` ``steps`` times under the profiler: wall time, the
-    device's busy time (the union of kernel intervals: kernels that
-    overlap in time would otherwise count twice) and kernel time by
-    name."""
+    """Run ``fn`` ``steps`` times under the profiler, tracing the device
+    alone (host-side tracing of every operator would stretch the wall
+    time): wall time, the device's busy time (the union of kernel
+    intervals: kernels that overlap in time would otherwise count twice)
+    and kernel time by name.  The device events are read from the
+    profiler's raw results, without building its event tree (a window may
+    hold half a million kernels)."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:
+        raise RuntimeError(
+            "this torch's profiler has no kineto_results (a private "
+            "attribute of torch.autograd.profiler.profile); read the "
+            "device events through prof.events() instead")
     by_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            tot, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
-            spans.append((e.time_range.start, e.time_range.end))
+    for e in raw.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            start, dur = e.start_ns() / 1e3, e.duration_ns() / 1e3
+            tot, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (tot + dur, n + 1)
+            spans.append((start, start + dur))
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
@@ -619,7 +661,7 @@ def phase_serve(torch, kernels):
     assert finite, "non-finite logits or losses"
     assert shapes_ok and tokens_ok, "serve output has the wrong shape"
     assert counts["flash_attention"] == expected > 0, (counts, expected)
-    assert counts["quantize"] == 0, counts
+    assert counts["quantize"] == counts["mlstm_chunk"] == 0, counts
 
     # where the device time goes (after the counts): the head bank's one
     # trunk forward, and one decode step with its per-request heads
@@ -657,6 +699,338 @@ def phase_serve(torch, kernels):
     return counts["flash_attention"]
 
 
+# ------------------------------------------------------------------ K3 ----
+def _mlstm_inputs(torch, b, s, h, dh, dtype, seed):
+    """q, k, v (B,S,H,dh) in ``dtype`` and float32 gates (B,S,H), the
+    model's layout, drawn as the reference's sweep draws them
+    (tests/test_kernels.py:94-99: k over sqrt(dh), lf a log sigmoid)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, h, dh, generator=gen, device="cuda")
+               for _ in range(3))
+    li = torch.randn(b, s, h, generator=gen, device="cuda")
+    lf = F.logsigmoid(torch.randn(b, s, h, generator=gen, device="cuda"))
+    return q.to(dtype), (k / math.sqrt(dh)).to(dtype), v.to(dtype), li, lf
+
+
+def _mlstm_plain(ref, q, k, v, li, lf):
+    return ref.mlstm_chunkwise(q, k, v, li, lf, chunk=ref.KERNEL_CHUNK)[0]
+
+
+def phase_check_mlstm(torch, ops, ref):
+    """K3 against its plain version on the card, on the same inputs."""
+    m = MLSTM_MAIN
+    cases = []
+    for b, h, s, dh in [(2, 2, 128, 32), (1, 4, 256, 64), (1, 1, 64, 16)]:
+        for dtype in ("float32", "bfloat16"):       # the reference's sweep
+            cases.append(((b, s, h, dh), dtype))
+    cases += [((6, 160, 2, 256), "float32"),         # reduced model's heads
+              ((2, 333, 2, 64), "float32"),          # ragged: 5 chunks + 13
+              ((2, 333, 2, 64), "bfloat16"),
+              ((1, 1, 2, 48), "float32")]            # one position
+    for dtype in ("float32", "bfloat16"):            # the serving shape
+        cases.append(((m["b"], m["s"], m["h"], m["dh"]), dtype))
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, (shape, dtype) in enumerate(cases):
+        x = _mlstm_inputs(torch, *shape, getattr(torch, dtype), i)
+        got = ops.mlstm_chunk(*x)
+        want = _mlstm_plain(ref, *x)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = (bool(torch.allclose(got.float(), want.float(),
+                                  **MLSTM_TOL[dtype]))
+              and got.dtype == x[0].dtype and got.shape == x[0].shape)
+        worst[dtype] = max(worst[dtype], err)
+        rows.append({"bshd": list(shape), "dtype": dtype,
+                     "max_abs_err": err,
+                     "max_abs_out": float(want.float().abs().max()),
+                     "ok": ok})
+        del x, got, want
+    # backward: autograd of the plain version, as the reference's VJP
+    x = _mlstm_inputs(torch, 1, 64, 2, 16, torch.float32, 99)
+    w = torch.randn_like(x[0])
+    leaves = [t.clone().requires_grad_() for t in x]
+    (ops.mlstm_chunk(*leaves) * w).sum().backward()
+    plain = [t.clone().requires_grad_() for t in x]
+    (_mlstm_plain(ref, *plain) * w).sum().backward()
+    grad_err = max(float((a.grad - b.grad).abs().max())
+                   for a, b in zip(leaves, plain))
+    grad_ok = all(torch.allclose(a.grad, b.grad, **MLSTM_TOL["float32"])
+                  for a, b in zip(leaves, plain))
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "check_mlstm", "kernel": "mlstm_chunk",
+          "cases": len(rows), "tolerance": MLSTM_TOL,
+          "max_abs_err": worst, "mismatches": bad,
+          "main_shapes": rows[-2:], "backward_max_abs_err": grad_err,
+          "backward_ok": grad_ok})
+    assert not bad and grad_ok, "K3 disagrees with its plain version"
+    return max(worst.values())
+
+
+def mlstm_work(b, s, h, dh, chunk=128, bytes_per_el=2):
+    """What the function needs at the reference's chunk of 128: per (b, h,
+    chunk of l rows), 2 dh l(l+1)/2 flops each for QK^T and (S.D)V (D is
+    lower-triangular) and 2 * 2 l dh^2 for QC and K^T V; no D K product
+    (q . n_intra is a row sum of QK^T.D).  The bytes: q, k, v read once
+    and h written once in their dtype, li and lf read once in float32."""
+    lens = [min(chunk, s - c) for c in range(0, s, chunk)]
+    flops = b * h * sum(2 * dh * l * (l + 1) + 4 * l * dh * dh for l in lens)
+    nbytes = 4 * b * s * h * dh * bytes_per_el + 2 * b * s * h * 4
+    return flops, nbytes
+
+
+def phase_time_mlstm(torch, ops, ref):
+    """K3 at the serving shape in bf16 (and float32 for reference): the
+    kernel, its plain version and its bound.  No single PyTorch call
+    computes the mLSTM, so there is no library time."""
+    m = MLSTM_MAIN
+    out = {}
+    for dtype, nbytes_el in (("bfloat16", 2), ("float32", 4)):
+        x = _mlstm_inputs(torch, m["b"], m["s"], m["h"], m["dh"],
+                          getattr(torch, dtype), 7)
+        kernel_ms = event_ms(torch, lambda: ops.mlstm_chunk(*x), iters=10,
+                             warmup=2)
+        plain_ms = event_ms(torch, lambda: _mlstm_plain(ref, *x), iters=5,
+                            warmup=1)
+        flops, nbytes = mlstm_work(m["b"], m["s"], m["h"], m["dh"],
+                                   bytes_per_el=nbytes_el)
+        flop_ms = flops / BF16_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"phase": "time_mlstm", "kernel": "mlstm_chunk",
+               "bshd": [m["b"], m["s"], m["h"], m["dh"]], "dtype": dtype,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+               "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+               "fp32_fma_bound_ms": flops / FP32_FLOPS * 1e3,
+               "flops": flops, "bytes": nbytes,
+               "rate_source": "NVIDIA H100 SXM data sheet: 989 TFLOP/s "
+                              "dense bf16, 67 TFLOP/s float32, 3.35 TB/s "
+                              "HBM3",
+               "kernel_TFLOPs": flops / kernel_ms / 1e9,
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes the "
+                               "chunkwise mLSTM"}
+        emit(row)
+        out[dtype] = row
+        del x
+    return out
+
+
+# --------------------------------------------------------- xLSTM serving --
+def phase_reference_serve_xlstm(torch, np, kernels):
+    """serve() at xlstm-350m.reduced(num_layers=6) (lead, scan and tail
+    stages; mLSTM heads of 256) on the card against the same call on the
+    CPU, with the same weights and seed.  The head bank runs on
+    160-token sequences: K3 takes two chunks of 64 and a ragged one of
+    32, the CPU's plain version one quadratic chunk.  Tolerances as for
+    gemma3: 1e-4 on the head bank, the losses and the logits; the tokens
+    must be equal."""
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    cfg = get_arch("xlstm-350m").reduced(num_layers=6)
+    params = build_model(cfg).init(make_generator(0, "cpu"))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=160,
+              log=MetricLogger("reference_serve_xlstm", sys.stderr))
+    before = kernels["mlstm_chunk"].launches
+    card = serve(cfg, params=tree_map(lambda t: t.cuda(), params),
+                 device="cuda", **kw)
+    card_launches = kernels["mlstm_chunk"].launches - before
+    cpu = serve(cfg, params=params, device="cpu", **kw)
+    diffs = {}
+    for name in ("head_bank", "logits", "bank_losses"):
+        a = getattr(card, name).cpu().numpy()
+        b = getattr(cpu, name).numpy()
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        diffs[name] = float(np.abs(a - b).max())
+    same_tokens = card.generated.cpu().tolist() == cpu.generated.tolist()
+    n_mlstm = sum(k == MLSTM for k in cfg.layer_kinds())
+    emit({"phase": "reference_serve_xlstm", "config": cfg.name,
+          "layer_kinds": list(cfg.layer_kinds()),
+          "stages": ["lead", "scan", "tail"], "bank_seq": 160,
+          "cuda_vs_cpu_max_abs_diff": diffs, "tol": 1e-4,
+          "card_k3_launches": card_launches, "same_tokens": same_tokens,
+          "same_profiles": card.profiles.tolist() == cpu.profiles.tolist()})
+    assert same_tokens, "generated tokens differ between card and CPU"
+    assert card_launches == n_mlstm, (card_launches, n_mlstm)
+
+
+def _involuntary_switches() -> int:
+    """How often the kernel took the main (dispatching) thread off its core
+    while it could still run: a host shared with other work shows here
+    (a sandboxed kernel may not count them, and then reports 0)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_THREAD).ru_nivcsw
+
+
+def seconds_by_block_kind(torch, fn, repeats):
+    """Host-clock seconds each of ``repeats`` calls of ``fn`` spends in
+    each xLSTM block kind (each block call wrapped in a synchronised
+    timer, after the counted run), with the main thread's CPU seconds and
+    involuntary context switches over the call: a thread that kept its
+    core has CPU seconds close to the wall's and few switches."""
+    from repro_torch.models import xlstm as xm
+    spent = {}
+    orig = {"mlstm": xm.mlstm_block_apply, "slstm": xm.slstm_block_apply}
+
+    def timed(kind):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig[kind](*a, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return call
+
+    rows = []
+    xm.mlstm_block_apply, xm.slstm_block_apply = timed("mlstm"), timed("slstm")
+    try:
+        for _ in range(repeats):
+            spent.update(mlstm=0.0, slstm=0.0)
+            cpu0, sw0 = time.thread_time(), _involuntary_switches()
+            _, wall = sync_time(torch, fn)
+            rows.append({"wall_s": wall, "mlstm_s": spent["mlstm"],
+                         "slstm_s": spent["slstm"],
+                         "main_thread_cpu_s": time.thread_time() - cpu0,
+                         "involuntary_switches":
+                         _involuntary_switches() - sw0,
+                         "loadavg_1min": os.getloadavg()[0]})
+    finally:
+        xm.mlstm_block_apply, xm.slstm_block_apply = (orig["mlstm"],
+                                                      orig["slstm"])
+    return rows
+
+
+def _spread(xs):
+    xs = sorted(xs)
+    return {"median": xs[len(xs) // 2], "min": xs[0], "max": xs[-1]}
+
+
+def phase_serve_xlstm(torch, kernels):
+    """The LM path at xlstm-350m's published config whole: 24 layers
+    alternating mLSTM and sLSTM (lead 2, scan 11 repeats of 2), d_model
+    1024, 4 heads (mLSTM heads of 512, sLSTM heads of 256), vocab 50304,
+    bf16, layernorm.  The reference's serving defaults (batch 4, 3
+    clients, prompt 16, 16 steps) with a head bank over 2048-token
+    sequences, the xLSTM paper's context length."""
+    from repro_torch.configs.base import MLSTM, SLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import personalized_logits, serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(
+        torch, lambda: model.init(make_generator(0, "cuda")))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=2048)
+
+    reset_counts(kernels)                  # count this path's run alone
+    res, wall = sync_time(torch, lambda: serve(
+        cfg, params=params, device="cuda",
+        log=MetricLogger("serve_xlstm", sys.stderr), **kw))
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    # one K3 launch per mLSTM layer: the head bank's one trunk forward runs
+    # all clients' sequences at once; decoding takes the recurrent step
+    expected = sum(kind == MLSTM for kind in cfg.layer_kinds())
+    finite = bool(torch.isfinite(res.logits).all()
+                  and torch.isfinite(res.bank_losses).all()
+                  and torch.isfinite(res.head_bank.float()).all())
+    shapes_ok = (tuple(res.generated.shape) == (kw["batch"], kw["steps"])
+                 and tuple(res.logits.shape) == (kw["batch"], kw["steps"],
+                                                 cfg.padded_vocab)
+                 and tuple(res.head_bank.shape) == (
+                     kw["clients"], cfg.d_model, cfg.padded_vocab))
+    tokens_ok = bool(((res.generated >= 0)
+                      & (res.generated < cfg.vocab_size)).all())
+    emit({"phase": "serve_xlstm", "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "layer_kinds": list(cfg.layer_kinds()),
+              "d_model": cfg.d_model, "xlstm_heads": cfg.xlstm.num_heads,
+              "mlstm_head_dim": int(cfg.d_model
+                                    * cfg.xlstm.proj_factor_mlstm)
+              // cfg.xlstm.num_heads,
+              "slstm_head_dim": cfg.d_model // cfg.xlstm.num_heads,
+              "vocab": cfg.padded_vocab, "dtype": cfg.dtype, **kw},
+          "params": n_params, "init_s": init_s, "serve_wall_s": wall,
+          "head_bank_s": res.bank_seconds, "decode_s": res.decode_seconds,
+          "decode_tokens": res.tokens, "decode_tok_per_s": res.tok_per_s,
+          "bank_losses": res.bank_losses.cpu().tolist(),
+          "profiles": res.profiles.tolist(),
+          "generated": res.generated.cpu().tolist(),
+          "peak_mem_GB": peak / 1e9, "launches": counts,
+          "mlstm_launches_expected": expected, "finite": finite,
+          "shapes_ok": shapes_ok, "tokens_in_vocab": tokens_ok})
+    assert finite, "non-finite logits or losses"
+    assert shapes_ok and tokens_ok, "serve output has the wrong shape"
+    assert counts["mlstm_chunk"] == expected == 12, (counts, expected)
+    assert counts["quantize"] == counts["flash_attention"] == 0, counts
+
+    # where the time goes (after the counts): the head bank's one trunk
+    # forward, by device kernel and by block kind, then one decode step
+    toks = torch.randint(0, cfg.vocab_size, (6, 2048), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model.apply(params, {"tokens": toks})
+
+    before = seconds_by_block_kind(torch, forward, FORWARD_REPEATS)
+    row, by_name = kernel_breakdown(torch, forward, 1)
+    k3_ms = sum(t for k, (t, _) in by_name.items()
+                if "mlstm_chunk_fwd" in k) / 1e3
+    after = seconds_by_block_kind(torch, forward, FORWARD_REPEATS)
+    rows = before + after
+    n_slstm = sum(kind == SLSTM for kind in cfg.layer_kinds())
+    emit({"phase": "serve_profile_xlstm", "what": "one trunk forward, 6 x "
+          "2048 tokens, 24 layers, bf16", **row,
+          "mlstm_kernel_ms": k3_ms,
+          "mlstm_kernel_share_of_kernel_time": k3_ms
+          / row["kernel_ms_sum_per_step"]
+          if row["kernel_ms_sum_per_step"] else None,
+          "host_cpus_usable": len(os.sched_getaffinity(0)),
+          "by_block_kind": {"before_profile": before,
+                            "after_profile": after},
+          "wall_s": _spread([r["wall_s"] for r in rows]),
+          "slstm_share": _spread([r["slstm_s"] / r["wall_s"] for r in rows]),
+          "mlstm_share": _spread([r["mlstm_s"] / r["wall_s"] for r in rows]),
+          "slstm_us_per_step_per_layer": _spread(
+              [r["slstm_s"] / (n_slstm * toks.shape[1]) * 1e6
+               for r in rows]),
+          "main_thread_cpu_share": _spread(
+              [r["main_thread_cpu_s"] / r["wall_s"] for r in rows])})
+
+    cache = model.init_cache(kw["batch"], kw["prompt_len"] + kw["steps"],
+                             dtype=torch.float32, device="cuda")
+    bank32 = res.head_bank.to(torch.float32)
+    tok = res.generated[:, :1]
+
+    def decode():
+        with torch.no_grad():
+            h, _ = model.decode_step(params, tok, cache, kw["prompt_len"],
+                                     return_hidden=True)
+            personalized_logits(h.to(torch.float32), bank32, res.profiles)
+
+    decode()                               # warm-up outside the profile
+    row, _ = kernel_breakdown(torch, decode, 5)
+    emit({"phase": "serve_profile_xlstm", "what": "one decode step, batch "
+          "4, 24 layers, per-request float32 heads", **row})
+    return counts["mlstm_chunk"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -667,8 +1041,12 @@ def main() -> int:
     from repro_torch.hopper.flash_attention import kernel as fa_kernel
     from repro_torch.hopper.flash_attention import ops as fa_ops
     from repro_torch.hopper.flash_attention import ref as fa_ref
+    from repro_torch.hopper.mlstm_chunk import kernel as ml_kernel
+    from repro_torch.hopper.mlstm_chunk import ops as ml_ops
+    from repro_torch.hopper.mlstm_chunk import ref as ml_ref
     from repro_torch.hopper.quantize import kernel, ops, ref
-    kernels = {"quantize": kernel, "flash_attention": fa_kernel}
+    kernels = {"quantize": kernel, "flash_attention": fa_kernel,
+               "mlstm_chunk": ml_kernel}
 
     resolve_device("cuda")               # float32 numerics on the card
     phase_device(torch)
@@ -683,7 +1061,12 @@ def main() -> int:
     del sim
     phase_reference_serve(np)
     flash_launches = phase_serve(torch, kernels)
+    mlstm_err = phase_check_mlstm(torch, ml_ops, ml_ref)
+    mlstm_timing = phase_time_mlstm(torch, ml_ops, ml_ref)
+    phase_reference_serve_xlstm(torch, np, kernels)
+    mlstm_launches = phase_serve_xlstm(torch, kernels)
     g, loc = flash_timing["global"], flash_timing["local"]
+    mb = mlstm_timing["bfloat16"]
     emit({"kernels": [{
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/hopper/quantize/csrc/quantize.cu",
@@ -705,7 +1088,18 @@ def main() -> int:
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "local": {k: loc[k] for k in ("window", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by",
-                                      "library_ms")}}]})
+                                      "library_ms")}}, {
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/hopper/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",
+        "launches": mlstm_launches, "within_tolerance": True,
+        "tolerance": MLSTM_TOL, "max_abs_err": mlstm_err,
+        "shape": "q, k, v (6,2048,4,512) bf16, li/lf (6,2048,4) float32",
+        "ms": mb["kernel_ms"], "kernel_ms": mb["kernel_ms"],
+        "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"],
+        "bound_by": mb["bound_by"], "library_ms": None,
+        "float32": {k: mlstm_timing["float32"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,15 +7,16 @@ of those raises a ``KeyError`` that names what the port still lacks.
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_12b
+from repro_torch.configs import gemma3_12b, xlstm_350m
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (gemma3_12b,)
+    m.CONFIG.name: m.CONFIG for m in (gemma3_12b, xlstm_350m)
 }
 
 # the reference's other architectures, and what each needs beyond the
-# decoder-LM slice (global/sliding-window attention, dense gated MLP)
+# LM slices (global/sliding-window attention with a dense gated MLP;
+# the mLSTM and sLSTM blocks)
 NOT_PORTED: dict[str, str] = {
     "command-r-plus-104b": "its config (dense attention, layernorm)",
     "mistral-large-123b": "its config (dense attention)",
@@ -23,7 +24,6 @@ NOT_PORTED: dict[str, str] = {
     "olmoe-1b-7b": "the MoE FFN",
     "deepseek-v2-236b": "MLA attention and the MoE FFN",
     "qwen2-vl-7b": "M-RoPE and the vision-patch frontend",
-    "xlstm-350m": "the mLSTM/sLSTM blocks (K3, the mLSTM chunk kernel)",
     "recurrentgemma-2b": "the RG-LRU block (K4, the RG-LRU scan kernel)",
     "seamless-m4t-medium": "the encoder-decoder model",
 }

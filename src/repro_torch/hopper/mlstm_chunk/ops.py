@@ -1,0 +1,82 @@
+"""The mLSTM chunk wrapper (K3) in the model's (B,S,H,dh) layout.
+
+Replaces ``repro.kernels.mlstm_chunk.ops.mlstm_chunk``.  The forward is
+the kernel; the backward differentiates the plain version
+(``ref.mlstm_chunkwise`` at the reference kernel's chunk of 128), as the
+reference's custom VJP does (the JAX package has no backward kernel).
+
+Dispatch is by the tensors' device: a CPU tensor takes the plain version
+(``ref.py``, in the same layout), a CUDA tensor launches the Hopper
+kernel (``kernel.py``) or raises.  There is no fallback from the kernel
+to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.hopper.mlstm_chunk import kernel
+from repro_torch.hopper.mlstm_chunk.ref import KERNEL_CHUNK, mlstm_chunkwise
+
+
+def _check(q, k, v, li, lf):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"want q, k, v (B,S,H,dh) of one shape; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if li.shape != q.shape[:3] or lf.shape != q.shape[:3]:
+        raise ValueError(f"want li, lf (B,S,H) = {tuple(q.shape[:3])}; got "
+                         f"{tuple(li.shape)}, {tuple(lf.shape)}")
+    if q.shape[1] < 1:
+        raise ValueError("the mLSTM needs at least one position")
+    if q.dtype not in kernel.DTYPES:
+        raise TypeError(f"the mLSTM chunk takes float32 or bfloat16 q, k, "
+                        f"v; got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("li", li), ("lf", lf)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (the reference's "
+                            f"gates), got {t.dtype}")
+    for name, t in (("k", k), ("v", v), ("li", li), ("lf", lf)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.device.type == "cuda" and q.shape[3] > kernel.MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {q.shape[3]} is not taken by the "
+                         f"kernel: at most {kernel.MAX_HEAD_DIM}")
+
+
+def _plain(q, k, v, li, lf):
+    return mlstm_chunkwise(q, k, v, li, lf, chunk=KERNEL_CHUNK)[0]
+
+
+def _forward(q, k, v, li, lf):
+    if q.device.type == "cpu":
+        return _plain(q, k, v, li, lf)
+    if q.device.type == "cuda":
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
+        return kernel.mlstm_chunk_cuda(q, k, v, li, lf)
+    raise ValueError(f"no mLSTM chunk kernel for device {q.device}")
+
+
+class _MlstmChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, li, lf):
+        ctx.save_for_backward(q, k, v, li, lf)
+        return _forward(q, k, v, li, lf)
+
+    @staticmethod
+    def backward(ctx, g):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            return torch.autograd.grad(_plain(*leaves), leaves, g)
+
+
+def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                li: torch.Tensor, lf: torch.Tensor) -> torch.Tensor:
+    """q, k, v: (B,S,H,dh); li, lf: (B,S,H) float32 log input/forget
+    gates — the model's layout.  Returns h (B,S,H,dh) in q's dtype."""
+    _check(q, k, v, li, lf)
+    return _MlstmChunk.apply(q, k, v, li, lf)

@@ -1,6 +1,7 @@
 """Decoder-LM assembly (``repro.models.transformer``), for the block kinds
-of the serving slice: global and sliding-window attention with a dense
-gated MLP.
+of the serving slices: global and sliding-window attention with a dense
+gated MLP, and the xLSTM blocks (mLSTM and sLSTM, each with its own
+up/down projections and no MLP sublayer).
 
 Layers are grouped into *stages* as in the reference:
 
@@ -12,7 +13,7 @@ Layers are grouped into *stages* as in the reference:
 so parameter trees carry across unchanged.  The LM head is always a
 separate parameter ("lm_head"): the PHSFL frozen random classifier.
 
-Other block kinds (MLA, MoE, RG-LRU, xLSTM) raise ``NotImplementedError``
+Other block kinds (MLA, MoE, RG-LRU) raise ``NotImplementedError``
 naming the slice that brings them.  The reference's activation
 checkpointing of the trunk (``remat``) is a training knob and waits for
 the LM training slice; ``lm_loss`` keeps its per-chunk recompute.
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
                                       SLSTM, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.init_utils import dense, embedding, norm
 from repro_torch.models.layers import apply_norm, mlp_apply, mlp_init, softcap
 from repro_torch.utils.tree import tree_map
@@ -38,9 +40,8 @@ LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
 _LATER = {
     MLA_ATTN: "MLA attention comes with a later LM slice",
     RGLRU: "the RG-LRU block comes with the K4 (RG-LRU scan) slice",
-    SLSTM: "the sLSTM block comes with the K3 (mLSTM chunk) slice",
-    MLSTM: "the mLSTM block comes with the K3 (mLSTM chunk) slice",
 }
+XLSTM_KINDS = (SLSTM, MLSTM)
 
 
 # ------------------------------------------------------------- stages ------
@@ -103,7 +104,12 @@ def _dtype(cfg: ModelConfig, dtype):
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
                dtype=None) -> dict:
     dtype = _dtype(cfg, dtype)
-    _layer_kind(cfg, layer_id)        # raises for kinds the slice lacks
+    kind = _layer_kind(cfg, layer_id)  # raises for kinds the port lacks
+    if kind in XLSTM_KINDS:
+        block_init = (xlstm_mod.slstm_init if kind == SLSTM
+                      else xlstm_mod.mlstm_init)
+        return {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
+                "block": block_init(gen, cfg, dtype)}
     return {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
             "ln2": norm(cfg.d_model, cfg.norm, dtype, gen.device),
             "attn": attn_mod.attn_init(gen, cfg, dtype),
@@ -113,8 +119,15 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
 # -------------------------------------------------------- layer apply ------
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
                 impl: str = "auto"):
-    """Full-sequence layer: pre-norm attention and MLP, both residual."""
+    """Full-sequence layer: pre-norm attention and MLP, both residual; or
+    a pre-norm xLSTM block, residual.  impl "auto" runs the kernels on the
+    card, "dense" the plain versions."""
     h = apply_norm(p["ln1"], x, cfg.norm)
+    if kind == SLSTM:
+        return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h)[0]
+    if kind == MLSTM:
+        return x + xlstm_mod.mlstm_block_apply(
+            p["block"], cfg, h, impl=impl)[0]
     x = x + attn_mod.attn_apply(
         p["attn"], cfg, h, window=_window(cfg, kind),
         rope_theta=_rope_theta_for(cfg, kind),
@@ -124,8 +137,14 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
 
 
 def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
-    """One-token decode through a layer.  Returns (x, cache)."""
+    """One-token decode through a layer, writing ``cache`` in place.
+    Returns (x, cache)."""
     h = apply_norm(p["ln1"], x, cfg.norm)
+    if kind in XLSTM_KINDS:
+        fn = (xlstm_mod.slstm_block_apply if kind == SLSTM
+              else xlstm_mod.mlstm_block_apply)
+        y, cache = fn(p["block"], cfg, h, cache=cache, index=index)
+        return x + y, cache
     y, cache = attn_mod.decode_attend(
         p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
         rope_theta=_rope_theta_for(cfg, kind),
@@ -137,7 +156,14 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
 
 def init_layer_cache(cfg: ModelConfig, layer_id: int, batch: int,
                      max_len: int, dtype=torch.bfloat16, device="cpu"):
+    """The layer's decode cache: a KV cache in ``dtype``, or an xLSTM
+    layer's recurrent state, float32 whatever ``dtype`` (as the
+    reference's ``init_*_cache``)."""
     kind = _layer_kind(cfg, layer_id)
+    if kind == SLSTM:
+        return xlstm_mod.init_slstm_cache(cfg, batch, device)
+    if kind == MLSTM:
+        return xlstm_mod.init_mlstm_cache(cfg, batch, device)
     return attn_mod.init_kv_cache(cfg, batch, max_len,
                                   window=_window(cfg, kind), dtype=dtype,
                                   device=device)

@@ -1,6 +1,7 @@
-"""Parameter trees: nested dicts of tensors.
+"""Parameter and cache trees: nested dicts (and tuples) of tensors.
 
-The port keeps the reference's tree layout (``{"conv1": {"w", "b"}, ...}``)
+The port keeps the reference's tree layout (``{"conv1": {"w", "b"}, ...}``;
+the recurrent decode caches hold tuples, as the mLSTM carry ``(C, n, m)``)
 and needs only a few helpers over it; ``tree_weighted_sum`` is a copy of
 ``repro.utils.tree.tree_weighted_sum`` (the FedAvg primitive).
 """
@@ -13,19 +14,26 @@ PyTree = Any
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """Apply ``fn`` leafwise over dict trees of the same structure."""
+    """Apply ``fn`` leafwise over dict/tuple trees of the same structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves_with_path(tree: PyTree, prefix: str = "") -> Iterator:
     """(path, leaf) pairs; paths read like ``jax.tree_util.keystr``
-    (``['conv1']['w']``), so a leaf's name is the same on both sides."""
+    (``['conv1']['w']``, ``['carry'][0]``), so a leaf's name is the same on
+    both sides."""
     if isinstance(tree, dict):
         for k in tree:
             yield from tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+    elif isinstance(tree, tuple):
+        for i, t in enumerate(tree):
+            yield from tree_leaves_with_path(t, f"{prefix}[{i}]")
     else:
         yield prefix, tree
 

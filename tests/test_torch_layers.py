@@ -43,10 +43,22 @@ def test_gemma3_config_and_reduced_match_reference(kw):
     assert ours.padded_vocab == ref.padded_vocab
 
 
+@pytest.mark.parametrize("kw", [{}, {"num_layers": 6}])
+def test_xlstm_config_and_reduced_match_reference(kw):
+    ours, ref = get_arch("xlstm-350m"), j_get_arch("xlstm-350m")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert (dataclasses.asdict(ours.reduced(**kw))
+            == dataclasses.asdict(ref.reduced(**kw)))
+    assert ours.layer_kinds() == ref.layer_kinds()
+    assert ours.padded_vocab == ref.padded_vocab
+
+
 def test_every_reference_arch_is_ported_or_named():
     from repro.configs.registry import ARCHS
+    from repro_torch.configs.registry import ARCHS as PORTED
+    assert set(PORTED) <= set(ARCHS)
     for name in ARCHS:
-        if name == "gemma3-12b":
+        if name in PORTED:
             continue
         assert name in NOT_PORTED
         with pytest.raises(KeyError, match="not ported yet"):

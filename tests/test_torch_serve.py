@@ -1,7 +1,7 @@
-"""Port parity for the personalized serving slice: the head bank (Eq. 18)
+"""Port parity for the personalized serving slices: the head bank (Eq. 18)
 and its evaluation, and ``serve()`` against the reference's
 ``launch/serve.py`` at small flags, with the reference's own parameters
-carried in.
+carried in, on gemma3-12b and xlstm-350m (reduced).
 
 Tolerances (float32): 1e-5 on the head bank and the losses (four SGD
 steps on cached hidden states; summation order), 1e-4 on the decode
@@ -37,8 +37,8 @@ from repro_torch.models.registry import build_model
 FLAGS = dict(batch=3, steps=6, clients=2, prompt_len=5, seed=0)
 
 
-def _reference(arch_kw=None):
-    j_cfg = j_get_arch("gemma3-12b").reduced(**(arch_kw or {}))
+def _reference(arch_kw=None, arch="gemma3-12b"):
+    j_cfg = j_get_arch(arch).reduced(**(arch_kw or {}))
     jm = j_build(j_cfg)
     jp = jm.init(jax.random.PRNGKey(0))
     return j_cfg, jm, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
@@ -135,6 +135,39 @@ def test_serve_matches_reference_main(capsys):
                                            + FLAGS["prompt_len"] - 1)
 
 
+def test_xlstm_head_bank_and_serve_match_reference():
+    """xlstm-350m.reduced(num_layers=6) (mLSTM and sLSTM layers in the
+    lead, scan and tail stages): the head bank over one trunk forward,
+    then the decode loop through the recurrent caches, against the
+    reference's serving loop.  On the CPU K3 takes its plain version."""
+    from repro_torch.hopper.mlstm_chunk import kernel as k3
+    j_cfg, jm, jp, tp = _reference({"num_layers": 6}, arch="xlstm-350m")
+    bank, ref_logits = _reference_logits(j_cfg, jm, jp, FLAGS)
+    before = k3.launches
+    res = t_serve.serve(get_arch("xlstm-350m").reduced(num_layers=6),
+                        params=tp, device="cpu", **FLAGS)
+    assert k3.launches == before
+    np.testing.assert_allclose(res.head_bank.numpy(), np.asarray(bank),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.logits.numpy(), ref_logits, rtol=1e-4,
+                               atol=1e-4)
+    assert res.generated.tolist() == np.asarray(
+        ref_logits)[..., :j_cfg.vocab_size].argmax(-1).tolist()
+
+
+def test_xlstm_serve_matches_reference_main(capsys):
+    """``--arch xlstm-350m``: the reference's main at its flags (the
+    reduced config, two layers) against ``serve()`` with its parameters."""
+    _, _, _, tp = _reference(arch="xlstm-350m")
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in FLAGS.items()]
+    j_serve.main(argv + ["--arch=xlstm-350m"])
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    res = t_serve.serve(get_arch("xlstm-350m").reduced(), params=tp,
+                        device="cpu", **FLAGS)
+    assert res.profiles.tolist() == ref["profiles"]
+    assert res.generated.tolist() == ref["generated"]
+
+
 def test_main_prints_the_reference_fields(capsys):
     res = t_serve.main(["--device", "cpu", "--batch", "2", "--steps", "3",
                         "--clients", "2", "--prompt-len", "4"])
@@ -142,6 +175,16 @@ def test_main_prints_the_reference_fields(capsys):
     assert set(out) == {"generated", "profiles", "tok_per_s"}
     assert np.array(out["generated"]).shape == (2, 3)
     assert out["generated"] == res.generated.tolist()
+    assert torch.isfinite(res.logits).all()
+
+
+def test_main_serves_xlstm_on_the_cpu(capsys):
+    res = t_serve.main(["--arch", "xlstm-350m", "--device", "cpu",
+                        "--batch", "2", "--steps", "3", "--clients", "2",
+                        "--prompt-len", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["generated"] == res.generated.tolist()
+    assert np.array(out["generated"]).shape == (2, 3)
     assert torch.isfinite(res.logits).all()
 
 

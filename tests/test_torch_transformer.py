@@ -1,7 +1,9 @@
 """Port parity for ``models/transformer.py`` and ``models/registry.py`` at
 ``gemma3-12b.reduced(num_layers=12)``: lead, scan and tail stages, five
 sliding-window layers (window 64) to each global one, qk-norm, gelu and
-the embedding scale, with the reference's own ``init`` carried in.
+the embedding scale, with the reference's own ``init`` carried in; and at
+``xlstm-350m.reduced(num_layers=6)``: the mLSTM and sLSTM layer kinds in
+all three stages, with their recurrent decode caches.
 
 Tolerances (float32): 1e-4 on the hidden states and logits after twelve
 layers (summation order compounds through the residual stream), 1e-5 on
@@ -147,9 +149,101 @@ def test_embed_scale_rounds_to_the_dtype_first():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("xlstm-350m", "K3"), ("recurrentgemma-2b", "K4"),
+    ("recurrentgemma-2b", "K4"),
     ("olmoe-1b-7b", "MoE"), ("deepseek-v2-236b", "MLA")])
 def test_other_block_kinds_raise_naming_their_slice(arch, match):
     cfg = j_get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match=match):
         tt.init(torch.Generator().manual_seed(0), cfg)
+
+
+# ---------------------------------------------------------- xlstm-350m -----
+# reduced(num_layers=6): lead (layer 0, mLSTM), scan (layers 1-2, sLSTM
+# then mLSTM, two repeats: stacked parameters and stacked caches) and tail
+# (layer 5, sLSTM); xLSTM layers are {"ln1", "block"}, with no MLP
+@pytest.fixture(scope="module")
+def xsetup():
+    j_cfg = j_get_arch("xlstm-350m").reduced(num_layers=6)
+    cfg = get_arch("xlstm-350m").reduced(num_layers=6)
+    jm, tm = j_build(j_cfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int32)
+    return j_cfg, cfg, jm, tm, jp, tp, toks
+
+
+@pytest.mark.parametrize("num_layers", [2, 6])
+def test_xlstm_init_matches_reference_param_tree(num_layers):
+    """``tt.init`` of xlstm-350m's reduced config runs and gives the
+    reference's parameter tree: the same keys, shapes and dtypes."""
+    j_cfg = j_get_arch("xlstm-350m").reduced(num_layers=num_layers)
+    cfg = get_arch("xlstm-350m").reduced(num_layers=num_layers)
+    ours = tt.init(torch.Generator().manual_seed(0), cfg)
+    want = jax.eval_shape(lambda: j_build(j_cfg).init(
+        jax.random.PRNGKey(0)))
+    assert ({p: (tuple(t.shape), str(t.dtype).split(".")[-1])
+             for p, t in tree_leaves_with_path(ours)}
+            == {jax.tree_util.keystr(p): (tuple(t.shape), str(t.dtype))
+                for p, t in jax.tree_util.tree_leaves_with_path(want)})
+    assert ([(s.which, s.layer_ids, s.repeats) for s in tt.compute_stages(cfg)]
+            == [(s.which, s.layer_ids, s.repeats)
+                for s in jt.compute_stages(j_cfg)])
+
+
+def test_xlstm_apply_matches_reference(xsetup):
+    """The full forward over 80 tokens (one quadratic mLSTM chunk), with
+    impl "auto" (K3's plain version on a CPU tensor) and "dense" (the
+    model's own chunkwise form); no kernel launches on the CPU."""
+    j_cfg, cfg, jm, tm, jp, tp, toks = xsetup
+    assert [s.which for s in tt.compute_stages(cfg)] == ["lead", "scan",
+                                                         "tail"]
+    want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    from repro_torch.hopper.mlstm_chunk import kernel as k3
+    before = k3.launches
+    got, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)})
+    assert k3.launches == before and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    plain, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)},
+                        impl="dense")
+    np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=TOL,
+                               atol=TOL)
+    labels = np.roll(toks, -1, axis=1)
+    np.testing.assert_allclose(
+        float(tm.loss(tp, {"tokens": torch.from_numpy(toks),
+                           "labels": torch.from_numpy(labels)})),
+        float(jm.loss(jp, {"tokens": jnp.asarray(toks),
+                           "labels": jnp.asarray(labels)})), rtol=1e-5)
+
+
+def test_xlstm_decode_loop_matches_reference(xsetup):
+    """24 one-token steps through every stage kind; the recurrent caches
+    (float32, stacked in the scan stage) are written in place and agree
+    with the reference's returned caches; logits at every step."""
+    j_cfg, cfg, jm, tm, jp, tp, toks = xsetup
+    steps = 24
+    jc = jm.init_cache(2, steps, dtype=jnp.float32)
+    tc = tm.init_cache(2, steps, dtype=torch.float32)
+    shapes = {p: tuple(t.shape) for p, t in tree_leaves_with_path(tc)}
+    assert shapes == {p: tuple(t.shape) for p, t in tree_leaves_with_path(
+        jax.tree.map(np.asarray, jc))}
+    assert shapes["['stage1']['b1']['carry'][0]"] == (2, 2, 2, 256, 256)
+    step = jax.jit(jm.decode_step)
+    for i in range(steps):
+        tok = toks[:, i:i + 1]
+        jl, jc = step(jp, jnp.asarray(tok), jc, jnp.asarray(i, jnp.int32))
+        tl, tc2 = tm.decode_step(tp, torch.from_numpy(tok), tc, i)
+        assert tc2 is tc
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {i}")
+    want = dict(tree_leaves_with_path(jax.tree.map(np.asarray, jc)))
+    for path, t in tree_leaves_with_path(tc):
+        np.testing.assert_allclose(t.numpy(), want[path], rtol=TOL,
+                                   atol=TOL, err_msg=path)
+    jh, _ = jm.decode_step(jp, jnp.asarray(toks[:, :1]), jc,
+                           jnp.asarray(steps, jnp.int32), return_hidden=True)
+    th, _ = tm.decode_step(tp, torch.from_numpy(toks[:, :1]), tc, steps,
+                           return_hidden=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL,
+                               atol=TOL)

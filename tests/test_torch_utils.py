@@ -65,6 +65,27 @@ def test_leaf_paths_read_like_jax_keystr():
     assert len(tree.tree_leaves(t)) == 3
 
 
+def test_tuple_caches_map_and_read_like_jax_keystr():
+    """The recurrent caches hold tuples (the mLSTM carry (C, n, m)):
+    ``tree_map`` keeps them tuples and walks several trees in step, and
+    their leaf paths read as jax's ``['carry'][0]``."""
+    t = {"conv": torch.zeros(2), "carry": (torch.ones(2), torch.ones(3),
+                                           torch.full((1,), 2.0))}
+    jt = {"conv": jnp.zeros(2), "carry": (jnp.ones(2), jnp.ones(3),
+                                          jnp.full((1,), 2.0))}
+    want = sorted(jax.tree_util.keystr(p)
+                  for p, _ in jax.tree_util.tree_flatten_with_path(jt)[0])
+    assert sorted(p for p, _ in tree.tree_leaves_with_path(t)) == want
+    stacked = tree.tree_map(lambda a: a.expand(3, *a.shape).clone(), t)
+    assert isinstance(stacked["carry"], tuple)
+    assert tuple(stacked["carry"][0].shape) == (3, 2)
+    view = tree.tree_map(lambda a: a[1], stacked)
+    view["carry"][1].copy_(torch.full((3,), 7.0))       # writes through
+    assert float(stacked["carry"][1][1].sum()) == 21.0
+    summed = tree.tree_map(lambda a, b: a + b, t, t)
+    assert float(summed["carry"][2]) == 4.0
+
+
 def _trees(n, seed):
     r = np.random.default_rng(seed)
     return [{"a": {"w": r.normal(size=(3, 4)).astype(np.float32)},
