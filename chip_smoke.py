@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's four paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
 The paths: PHSFL training of the paper's CNN (``FedSim``, kernel K1, the
 quantize-dequantize), personalized LM serving on gemma3-12b
-(``launch/serve.py``, kernel K2, flash attention) and personalized LM
+(``launch/serve.py``, kernel K2, flash attention), personalized LM
 serving on xlstm-350m (the same entry point, kernel K3, the chunkwise
-mLSTM).  Phases, each printing one JSON line (any mismatch or fault
-exits non-zero; no phase's failure is caught):
+mLSTM) and on recurrentgemma-2b (the same entry point, kernels K4, the
+RG-LRU scan, and K2).  Phases, each printing one JSON line (any mismatch
+or fault exits non-zero; no phase's failure is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
    it (also printed as a line of its own), torch and CUDA versions;
@@ -20,8 +21,10 @@ exits non-zero; no phase's failure is caught):
    the straight-through gradient is exactly ones;
 4. check_flash: K2 against its plain version on the card (the
    reference's sweep, softcap, a ragged length, the head bank at the
-   reference's size, the serving path's shapes; 2e-5 in float32, 2e-2 in
-   bfloat16), and its backward against autograd of the plain version;
+   reference's size, the serving path's shapes, recurrentgemma-2b's
+   10 query heads over one kv head with its window of 2048 binding; 2e-5
+   in float32, 2e-2 in bfloat16), and its backward against autograd of
+   the plain version;
 5. time: K1, its plain version and its bound, with CUDA events;
 6. time_flash: K2 at the serving path's two shapes (global and
    sliding-window layers), its plain version, its bound and PyTorch's
@@ -59,7 +62,25 @@ exits non-zero; no phase's failure is caught):
     profile, with the main thread's CPU seconds and involuntary context
     switches: K3's mLSTM layers against the sLSTM's Python loop over
     time) and one decode step's;
-16. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
+16. check_rglru: K4 against its plain version on the card (the
+    reference's sweep in float32 and bfloat16, the serving shape
+    (6,2048,2560) in float32 from a nonzero h0, ragged lengths and
+    widths; 1e-4 in float32, 5e-2 in bfloat16), and its backward against
+    autograd through the parallel-prefix form (1e-4);
+17. time_rglru: K4 at the serving shape, its plain version and its bound;
+    K2 at recurrentgemma-2b's attention shape, its plain version, its
+    bound and ``scaled_dot_product_attention``;
+18. reference_serve_rglru: ``serve()`` at
+    ``recurrentgemma-2b.reduced(num_layers=8)`` on the card against the
+    same call on the CPU, same weights and seed;
+19. serve_rglru: the LM path at recurrentgemma-2b's published config
+    whole (26 layers, d_model 2560, 10 heads of 256 over one kv head,
+    lru_width 2560, vocab 256000, bf16), the reference's serving defaults
+    with a head bank over 2048-token sequences, counts set to 0 just
+    before and read just after; then where one trunk forward's time goes
+    (device kernels, and host-clock seconds by block kind: RG-LRU, local
+    attention, MLP) and one decode step's;
+20. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
     line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -113,6 +134,18 @@ FP32_FLOPS = 67e12       # float32 outside the tensor cores, same sheet
 # host-clock repeats of the xlstm trunk forward on either side of its
 # profile (its time spreads widely)
 FORWARD_REPEATS = 3
+
+# K4 on the recurrentgemma-2b serving path: the head bank's one trunk
+# forward over 3 clients x 2 sequences x 2048 tokens at lru_width 2560;
+# log_a, b (B,S,W) and h0 (B,W) float32
+RGLRU_MAIN = dict(b=6, s=2048, w=2560)
+RGLRU_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py:75
+# K2 at recurrentgemma-2b's attention: 10 query heads over one kv head of
+# 256, window 2048 (the serving path's 2048 tokens do not reach past it)
+FLASH_MQA = dict(b=6, s=2048, h=10, kvh=1, d=256)
+RGLRU_WINDOW = 2048
+# host-clock repeats of the recurrentgemma trunk forward before its profile
+RGLRU_FORWARD_REPEATS = 2
 
 
 def emit(obj) -> None:
@@ -360,7 +393,8 @@ def phase_fedsim(torch, np, kernels):
     assert finite, "non-finite metrics"
     assert shapes_ok, "personalized heads have the wrong shape"
     assert launches == expected and launches > 0, (launches, expected)
-    assert counts["flash_attention"] == counts["mlstm_chunk"] == 0, counts
+    assert (counts["flash_attention"] == counts["mlstm_chunk"]
+            == counts["rglru_scan"] == 0), counts
     return launches, sim
 
 
@@ -461,6 +495,11 @@ def phase_check_flash(torch, ops, ref):
     # path's shapes at full width
     cases.append(((6, 32, 4, 4, 64), "float32", dict(causal=True,
                                                      window=64)))
+    # recurrentgemma-2b's attention (one kv head for 10 query heads) with
+    # 2560 tokens, so its window of 2048 binds on the last 512 rows
+    mqa = FLASH_MQA
+    cases.append(((mqa["b"], 2560, mqa["h"], mqa["kvh"], mqa["d"]),
+                  "bfloat16", dict(causal=True, window=RGLRU_WINDOW)))
     for name, window in FLASH_LAYERS.items():
         cases.append(((m["b"], m["s"], m["h"], m["kvh"], m["d"]), "bfloat16",
                       dict(causal=True, window=window)))
@@ -494,6 +533,7 @@ def phase_check_flash(torch, ops, ref):
           "cases": len(rows), "tolerance": FLASH_TOL,
           "max_abs_err": worst, "mismatches": bad,
           "main_shapes": rows[-len(FLASH_LAYERS):],
+          "mqa_window_binds": rows[-len(FLASH_LAYERS) - 1],
           "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
     assert not bad and grad_ok, "K2 disagrees with its plain version"
     return max(worst.values())
@@ -509,25 +549,26 @@ def flash_work(b, s, h, kvh, d, window, bytes_per_el=2):
     return pairs, flops, nbytes
 
 
-def phase_time_flash(torch, ops, ref):
-    """K2 at the serving path's shapes: the kernel, its plain version, its
+def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
+                     arch="gemma3-12b"):
+    """K2 at a serving path's shapes: the kernel, its plain version, its
     bound, and one PyTorch call that computes the same function
     (scaled_dot_product_attention with enable_gqa; a boolean band mask
-    for the sliding window).  gemma3 has no attention softcap, so the
-    functions are the same; the port never calls that function."""
+    for a sliding window that binds).  gemma3 and recurrentgemma have no
+    attention softcap, so the functions are the same; the port never
+    calls that function."""
     import torch.nn.functional as F
-    m = FLASH_MAIN
     q, k, v = _flash_inputs(torch, m["b"], m["s"], m["h"], m["kvh"], m["d"],
                             torch.bfloat16, 7)
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(m["s"], device="cuda")
     out = {}
-    for name, window in FLASH_LAYERS.items():
+    for name, window in layers.items():
         kernel_ms = event_ms(torch, lambda: ops.flash_attention(
             q, k, v, causal=True, window=window), iters=20)
         plain_ms = event_ms(torch, lambda: _flash_plain(
             ref, q, k, v, causal=True, window=window), iters=5, warmup=1)
-        if window:
+        if window and window < m["s"]:
             band = ((pos[None, :] <= pos[:, None])
                     & (pos[None, :] > pos[:, None] - window))
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -543,7 +584,7 @@ def phase_time_flash(torch, ops, ref):
         flop_ms = flops / BF16_FLOPS * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"phase": "time_flash", "kernel": "flash_attention",
-               "layer": name, "window": window, "bshkd": [
+               "arch": arch, "layer": name, "window": window, "bshkd": [
                    m["b"], m["s"], m["h"], m["kvh"], m["d"]],
                "dtype": "bfloat16", "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
@@ -661,7 +702,8 @@ def phase_serve(torch, kernels):
     assert finite, "non-finite logits or losses"
     assert shapes_ok and tokens_ok, "serve output has the wrong shape"
     assert counts["flash_attention"] == expected > 0, (counts, expected)
-    assert counts["quantize"] == counts["mlstm_chunk"] == 0, counts
+    assert (counts["quantize"] == counts["mlstm_chunk"]
+            == counts["rglru_scan"] == 0), counts
 
     # where the device time goes (after the counts): the head bank's one
     # trunk forward, and one decode step with its per-request heads
@@ -870,15 +912,16 @@ def _involuntary_switches() -> int:
     return resource.getrusage(resource.RUSAGE_THREAD).ru_nivcsw
 
 
-def seconds_by_block_kind(torch, fn, repeats):
+def seconds_by_block_kind(torch, fn, repeats, targets):
     """Host-clock seconds each of ``repeats`` calls of ``fn`` spends in
-    each xLSTM block kind (each block call wrapped in a synchronised
-    timer, after the counted run), with the main thread's CPU seconds and
+    each block kind (each block call wrapped in a synchronised timer,
+    after the counted run), with the main thread's CPU seconds and
     involuntary context switches over the call: a thread that kept its
-    core has CPU seconds close to the wall's and few switches."""
-    from repro_torch.models import xlstm as xm
+    core has CPU seconds close to the wall's and few switches.  targets:
+    {kind: (module, function name)}, the functions the model looks up at
+    call time."""
     spent = {}
-    orig = {"mlstm": xm.mlstm_block_apply, "slstm": xm.slstm_block_apply}
+    orig = {kind: getattr(mod, name) for kind, (mod, name) in targets.items()}
 
     def timed(kind):
         def call(*a, **kw):
@@ -891,21 +934,22 @@ def seconds_by_block_kind(torch, fn, repeats):
         return call
 
     rows = []
-    xm.mlstm_block_apply, xm.slstm_block_apply = timed("mlstm"), timed("slstm")
+    for kind, (mod, name) in targets.items():
+        setattr(mod, name, timed(kind))
     try:
         for _ in range(repeats):
-            spent.update(mlstm=0.0, slstm=0.0)
+            spent.update({kind: 0.0 for kind in targets})
             cpu0, sw0 = time.thread_time(), _involuntary_switches()
             _, wall = sync_time(torch, fn)
-            rows.append({"wall_s": wall, "mlstm_s": spent["mlstm"],
-                         "slstm_s": spent["slstm"],
+            rows.append({"wall_s": wall,
+                         **{f"{kind}_s": spent[kind] for kind in targets},
                          "main_thread_cpu_s": time.thread_time() - cpu0,
                          "involuntary_switches":
                          _involuntary_switches() - sw0,
                          "loadavg_1min": os.getloadavg()[0]})
     finally:
-        xm.mlstm_block_apply, xm.slstm_block_apply = (orig["mlstm"],
-                                                      orig["slstm"])
+        for kind, (mod, name) in targets.items():
+            setattr(mod, name, orig[kind])
     return rows
 
 
@@ -978,7 +1022,8 @@ def phase_serve_xlstm(torch, kernels):
     assert finite, "non-finite logits or losses"
     assert shapes_ok and tokens_ok, "serve output has the wrong shape"
     assert counts["mlstm_chunk"] == expected == 12, (counts, expected)
-    assert counts["quantize"] == counts["flash_attention"] == 0, counts
+    assert (counts["quantize"] == counts["flash_attention"]
+            == counts["rglru_scan"] == 0), counts
 
     # where the time goes (after the counts): the head bank's one trunk
     # forward, by device kernel and by block kind, then one decode step
@@ -988,11 +1033,14 @@ def phase_serve_xlstm(torch, kernels):
         with torch.no_grad():
             model.apply(params, {"tokens": toks})
 
-    before = seconds_by_block_kind(torch, forward, FORWARD_REPEATS)
+    from repro_torch.models import xlstm as xm
+    targets = {"mlstm": (xm, "mlstm_block_apply"),
+               "slstm": (xm, "slstm_block_apply")}
+    before = seconds_by_block_kind(torch, forward, FORWARD_REPEATS, targets)
     row, by_name = kernel_breakdown(torch, forward, 1)
     k3_ms = sum(t for k, (t, _) in by_name.items()
                 if "mlstm_chunk_fwd" in k) / 1e3
-    after = seconds_by_block_kind(torch, forward, FORWARD_REPEATS)
+    after = seconds_by_block_kind(torch, forward, FORWARD_REPEATS, targets)
     rows = before + after
     n_slstm = sum(kind == SLSTM for kind in cfg.layer_kinds())
     emit({"phase": "serve_profile_xlstm", "what": "one trunk forward, 6 x "
@@ -1031,6 +1079,280 @@ def phase_serve_xlstm(torch, kernels):
     return counts["mlstm_chunk"]
 
 
+# ------------------------------------------------------------------ K4 ----
+def _rglru_inputs(torch, b, s, w, dtype, seed):
+    """log_a <= 0 and b (B,S,W) in ``dtype``, h0 (B,W) float32, drawn as
+    the reference's sweep draws them (tests/test_kernels.py:70-72)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    la = -torch.randn(b, s, w, generator=gen, device="cuda").abs() * 0.1
+    bb = torch.randn(b, s, w, generator=gen, device="cuda")
+    h0 = torch.randn(b, w, generator=gen, device="cuda")
+    return la.to(dtype), bb.to(dtype), h0
+
+
+def phase_check_rglru(torch, ops, ref):
+    """K4 against its plain sequential version on the card, on the same
+    inputs."""
+    m = RGLRU_MAIN
+    cases = []
+    for b, s, w in [(2, 128, 64), (1, 256, 512), (3, 64, 128)]:
+        for dtype in ("float32", "bfloat16"):       # the reference's sweep
+            cases.append(((b, s, w), dtype))
+    cases += [((6, 160, 256), "float32"),            # reduced model's bank
+              ((2, 1, m["w"]), "float32"),           # one step
+              ((2, 2047, 100), "float32"),           # ragged S and W
+              ((1, 333, 37), "bfloat16"),
+              ((m["b"], m["s"], m["w"]), "bfloat16"),
+              ((m["b"], m["s"], m["w"]), "float32")]  # the serving shape
+    rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, (shape, dtype) in enumerate(cases):
+        x = _rglru_inputs(torch, *shape, getattr(torch, dtype), i)
+        got = ops.rglru_scan(*x)
+        want = ref.rglru_scan_ref(*x)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = RGLRU_TOL[dtype]
+        ok = (bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol))
+              and got.dtype == x[0].dtype and got.shape == x[0].shape)
+        worst[dtype] = max(worst[dtype], err)
+        rows.append({"bsw": list(shape), "dtype": dtype, "max_abs_err": err,
+                     "max_abs_out": float(want.float().abs().max()),
+                     "ok": ok})
+        del x, got, want
+    # backward: the wrapper's VJP differentiates the sequential version, as
+    # the reference's does; it is held against autograd through the
+    # independent parallel-prefix form, so the values are checked as well
+    # as the saved tensors and the gradients' dtypes
+    x = _rglru_inputs(torch, 2, 48, 40, torch.float32, 99)
+    w = torch.randn_like(x[0])
+    leaves = [t.clone().requires_grad_() for t in x]
+    (ops.rglru_scan(*leaves) * w).sum().backward()
+    plain = [t.clone().requires_grad_() for t in x]
+    (ref.rglru_scan_assoc(*plain) * w).sum().backward()
+    grad_err = max(float((a.grad - b.grad).abs().max())
+                   for a, b in zip(leaves, plain))
+    grad_ok = all(torch.allclose(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+                  for a, b in zip(leaves, plain))
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "check_rglru", "kernel": "rglru_scan",
+          "cases": len(rows), "tolerance": RGLRU_TOL,
+          "max_abs_err": worst, "mismatches": bad, "main_shape": rows[-1],
+          "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
+    assert not bad and grad_ok, "K4 disagrees with its plain version"
+    return max(worst.values())
+
+
+def rglru_work(b, s, w, bytes_per_el=4):
+    """What the function needs: log_a and b read once and h written once
+    in their dtype, h0 read once in float32; 3 flops an element (exp,
+    multiply, add)."""
+    return 3 * b * s * w, 3 * b * s * w * bytes_per_el + 4 * b * w
+
+
+def phase_time_rglru(torch, ops, ref):
+    """K4 at the serving shape in float32: the kernel, its plain version
+    and its bound.  No single PyTorch call computes a linear recurrence,
+    so there is no library time."""
+    m = RGLRU_MAIN
+    x = _rglru_inputs(torch, m["b"], m["s"], m["w"], torch.float32, 7)
+    kernel_ms = event_ms(torch, lambda: ops.rglru_scan(*x), iters=50,
+                         warmup=5)
+    plain_ms = event_ms(torch, lambda: ref.rglru_scan_ref(*x), iters=5,
+                        warmup=1)
+    flops, nbytes = rglru_work(m["b"], m["s"], m["w"])
+    flop_ms = flops / FP32_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "time_rglru", "kernel": "rglru_scan",
+           "bsw": [m["b"], m["s"], m["w"]], "dtype": "float32",
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "bound_ms": max(flop_ms, byte_ms),
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+           "flops": flops, "bytes": nbytes,
+           "rate_source": "NVIDIA H100 SXM data sheet: 67 TFLOP/s float32, "
+                          "3.35 TB/s HBM3",
+           "kernel_GBps": nbytes / kernel_ms / 1e6,
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes a linear "
+                           "recurrence (no associative scan outside "
+                           "torch.compile)"}
+    emit(row)
+    return row
+
+
+# -------------------------------------------------- recurrentgemma serving -
+def phase_reference_serve_rglru(torch, np, kernels):
+    """serve() at recurrentgemma-2b.reduced(num_layers=8) (lead, scan and
+    tail stages: six RG-LRU layers and two local-attention ones, window
+    64) on the card against the same call on the CPU, with the same
+    weights and seed.  The head bank runs on 160-token sequences, so the
+    window binds.  Tolerances as for gemma3: 1e-4 on the head bank, the
+    losses and the logits; the tokens must be equal."""
+    from repro_torch.configs.base import LOCAL_ATTN, RGLRU
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    cfg = get_arch("recurrentgemma-2b").reduced(num_layers=8)
+    params = build_model(cfg).init(make_generator(0, "cpu"))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=160,
+              log=MetricLogger("reference_serve_rglru", sys.stderr))
+    reset_counts(kernels)
+    card = serve(cfg, params=tree_map(lambda t: t.cuda(), params),
+                 device="cuda", **kw)
+    card_launches = read_counts(kernels)
+    cpu = serve(cfg, params=params, device="cpu", **kw)
+    diffs = {}
+    for name in ("head_bank", "logits", "bank_losses"):
+        a = getattr(card, name).cpu().numpy()
+        b = getattr(cpu, name).numpy()
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        diffs[name] = float(np.abs(a - b).max())
+    same_tokens = card.generated.cpu().tolist() == cpu.generated.tolist()
+    kinds = cfg.layer_kinds()
+    emit({"phase": "reference_serve_rglru", "config": cfg.name,
+          "layer_kinds": list(kinds), "stages": ["lead", "scan", "tail"],
+          "bank_seq": 160, "cuda_vs_cpu_max_abs_diff": diffs, "tol": 1e-4,
+          "card_launches": card_launches, "same_tokens": same_tokens,
+          "same_profiles": card.profiles.tolist() == cpu.profiles.tolist()})
+    assert same_tokens, "generated tokens differ between card and CPU"
+    assert card_launches["rglru_scan"] == sum(k == RGLRU for k in kinds)
+    assert card_launches["flash_attention"] == sum(k == LOCAL_ATTN
+                                                   for k in kinds)
+
+
+def phase_serve_rglru(torch, kernels):
+    """The LM path at recurrentgemma-2b's published config whole: 26
+    layers in the Griffin pattern (lead: 2 RG-LRU; scan: 8 repeats of
+    local attention, RG-LRU, RG-LRU), d_model 2560, 10 query heads of 256
+    over one kv head, d_ff 7680, lru_width 2560, conv 4, window 2048,
+    vocab 256000, bf16.  The reference's serving defaults (batch 4, 3
+    clients, prompt 16, 16 steps) with a head bank over 2048-token
+    sequences."""
+    from repro_torch.configs.base import LOCAL_ATTN, RGLRU
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import personalized_logits, serve
+    from repro_torch.models import attention as am
+    from repro_torch.models import rglru as rm
+    from repro_torch.models import transformer as tm
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_arch("recurrentgemma-2b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(
+        torch, lambda: model.init(make_generator(0, "cuda")))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kw = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+              bank_seq=2048)
+
+    reset_counts(kernels)                  # count this path's run alone
+    res, wall = sync_time(torch, lambda: serve(
+        cfg, params=params, device="cuda",
+        log=MetricLogger("serve_rglru", sys.stderr), **kw))
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    # one K4 launch per RG-LRU layer and one K2 launch per local-attention
+    # layer: the head bank's one trunk forward runs all clients' sequences
+    # at once; decoding takes the recurrent step and dense attention over
+    # the cache
+    kinds = cfg.layer_kinds()
+    expected = {"rglru_scan": sum(k == RGLRU for k in kinds),
+                "flash_attention": sum(k == LOCAL_ATTN for k in kinds)}
+    finite = bool(torch.isfinite(res.logits).all()
+                  and torch.isfinite(res.bank_losses).all()
+                  and torch.isfinite(res.head_bank.float()).all())
+    shapes_ok = (tuple(res.generated.shape) == (kw["batch"], kw["steps"])
+                 and tuple(res.logits.shape) == (kw["batch"], kw["steps"],
+                                                 cfg.padded_vocab)
+                 and tuple(res.head_bank.shape) == (
+                     kw["clients"], cfg.d_model, cfg.padded_vocab))
+    tokens_ok = bool(((res.generated >= 0)
+                      & (res.generated < cfg.vocab_size)).all())
+    emit({"phase": "serve_rglru", "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "layer_kinds": list(kinds), "d_model": cfg.d_model,
+              "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+              "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+              "lru_width": cfg.rglru.lru_width,
+              "conv_kernel": cfg.rglru.conv_kernel,
+              "window": cfg.sliding_window, "vocab": cfg.padded_vocab,
+              "dtype": cfg.dtype, **kw},
+          "params": n_params, "init_s": init_s, "serve_wall_s": wall,
+          "head_bank_s": res.bank_seconds, "decode_s": res.decode_seconds,
+          "decode_tokens": res.tokens, "decode_tok_per_s": res.tok_per_s,
+          "bank_losses": res.bank_losses.cpu().tolist(),
+          "profiles": res.profiles.tolist(),
+          "generated": res.generated.cpu().tolist(),
+          "peak_mem_GB": peak / 1e9, "launches": counts,
+          "launches_expected": expected, "finite": finite,
+          "shapes_ok": shapes_ok, "tokens_in_vocab": tokens_ok})
+    assert finite, "non-finite logits or losses"
+    assert shapes_ok and tokens_ok, "serve output has the wrong shape"
+    assert expected == {"rglru_scan": 18, "flash_attention": 8}, expected
+    assert all(counts[k] == n for k, n in expected.items()), (counts,
+                                                             expected)
+    assert counts["quantize"] == counts["mlstm_chunk"] == 0, counts
+
+    # where the time goes (after the counts): the head bank's one trunk
+    # forward by block kind on the host's clock, then by device kernel,
+    # then one decode step
+    toks = torch.randint(0, cfg.vocab_size, (6, 2048), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model.apply(params, {"tokens": toks})
+
+    targets = {"rglru": (rm, "rglru_block_apply"),
+               "local_attn": (am, "attn_apply"), "mlp": (tm, "mlp_apply")}
+    rows = seconds_by_block_kind(torch, forward, RGLRU_FORWARD_REPEATS,
+                                 targets)
+    row, by_name = kernel_breakdown(torch, forward, 1)
+    k4_ms = sum(t for k, (t, _) in by_name.items()
+                if "rglru_scan_fwd" in k) / 1e3
+    k2_ms = sum(t for k, (t, _) in by_name.items()
+                if "flash_fwd" in k) / 1e3
+    kernel_ms = row["kernel_ms_sum_per_step"]
+    emit({"phase": "serve_profile_rglru", "what": "one trunk forward, 6 x "
+          "2048 tokens, 26 layers, bf16", **row,
+          "rglru_kernel_ms": k4_ms, "flash_kernel_ms": k2_ms,
+          "rglru_kernel_share_of_kernel_time": k4_ms / kernel_ms
+          if kernel_ms else None,
+          "flash_kernel_share_of_kernel_time": k2_ms / kernel_ms
+          if kernel_ms else None,
+          "by_block_kind": rows,
+          "wall_s": _spread([r["wall_s"] for r in rows]),
+          **{f"{kind}_share": _spread([r[f"{kind}_s"] / r["wall_s"]
+                                       for r in rows]) for kind in targets},
+          "main_thread_cpu_share": _spread(
+              [r["main_thread_cpu_s"] / r["wall_s"] for r in rows])})
+
+    cache = model.init_cache(kw["batch"], kw["prompt_len"] + kw["steps"],
+                             dtype=torch.float32, device="cuda")
+    bank32 = res.head_bank.to(torch.float32)
+    tok = res.generated[:, :1]
+
+    def decode():
+        with torch.no_grad():
+            h, _ = model.decode_step(params, tok, cache, kw["prompt_len"],
+                                     return_hidden=True)
+            personalized_logits(h.to(torch.float32), bank32, res.profiles)
+
+    decode()                               # warm-up outside the profile
+    row, _ = kernel_breakdown(torch, decode, 5)
+    emit({"phase": "serve_profile_rglru", "what": "one decode step, batch "
+          "4, 26 layers, per-request float32 heads", **row})
+    return counts["rglru_scan"], counts["flash_attention"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1045,8 +1367,11 @@ def main() -> int:
     from repro_torch.hopper.mlstm_chunk import ops as ml_ops
     from repro_torch.hopper.mlstm_chunk import ref as ml_ref
     from repro_torch.hopper.quantize import kernel, ops, ref
+    from repro_torch.hopper.rglru_scan import kernel as rg_kernel
+    from repro_torch.hopper.rglru_scan import ops as rg_ops
+    from repro_torch.hopper.rglru_scan import ref as rg_ref
     kernels = {"quantize": kernel, "flash_attention": fa_kernel,
-               "mlstm_chunk": ml_kernel}
+               "mlstm_chunk": ml_kernel, "rglru_scan": rg_kernel}
 
     resolve_device("cuda")               # float32 numerics on the card
     phase_device(torch)
@@ -1065,6 +1390,13 @@ def main() -> int:
     mlstm_timing = phase_time_mlstm(torch, ml_ops, ml_ref)
     phase_reference_serve_xlstm(torch, np, kernels)
     mlstm_launches = phase_serve_xlstm(torch, kernels)
+    rglru_err = phase_check_rglru(torch, rg_ops, rg_ref)
+    rglru_timing = phase_time_rglru(torch, rg_ops, rg_ref)
+    mqa_timing = phase_time_flash(torch, fa_ops, fa_ref, m=FLASH_MQA,
+                                  layers={"local": RGLRU_WINDOW},
+                                  arch="recurrentgemma-2b")["local"]
+    phase_reference_serve_rglru(torch, np, kernels)
+    rglru_launches, rg_flash_launches = phase_serve_rglru(torch, kernels)
     g, loc = flash_timing["global"], flash_timing["local"]
     mb = mlstm_timing["bfloat16"]
     emit({"kernels": [{
@@ -1088,7 +1420,13 @@ def main() -> int:
         "bound_by": g["bound_by"], "library_ms": g["library_ms"],
         "local": {k: loc[k] for k in ("window", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by",
-                                      "library_ms")}}, {
+                                      "library_ms")},
+        "recurrentgemma_local": {
+            "shape": "q (6,2048,10,256), k/v (6,2048,1,256) bf16, window "
+                     "2048", "launches": rg_flash_launches,
+            **{k: mqa_timing[k] for k in ("kernel_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}}}, {
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/hopper/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",
@@ -1099,7 +1437,18 @@ def main() -> int:
         "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"],
         "bound_by": mb["bound_by"], "library_ms": None,
         "float32": {k: mlstm_timing["float32"][k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}]})
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/hopper/rglru_scan/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:46",
+        "launches": rglru_launches, "within_tolerance": True,
+        "tolerance": RGLRU_TOL, "max_abs_err": rglru_err,
+        "shape": "log_a, b (6,2048,2560) float32, h0 (6,2560) float32",
+        "ms": rglru_timing["kernel_ms"],
+        "kernel_ms": rglru_timing["kernel_ms"],
+        "plain_ms": rglru_timing["plain_ms"],
+        "bound_ms": rglru_timing["bound_ms"],
+        "bound_by": rglru_timing["bound_by"], "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,16 +7,17 @@ of those raises a ``KeyError`` that names what the port still lacks.
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_12b, xlstm_350m
+from repro_torch.configs import gemma3_12b, recurrentgemma_2b, xlstm_350m
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (gemma3_12b, xlstm_350m)
+    m.CONFIG.name: m.CONFIG
+    for m in (gemma3_12b, xlstm_350m, recurrentgemma_2b)
 }
 
 # the reference's other architectures, and what each needs beyond the
 # LM slices (global/sliding-window attention with a dense gated MLP;
-# the mLSTM and sLSTM blocks)
+# the mLSTM and sLSTM blocks; the RG-LRU block)
 NOT_PORTED: dict[str, str] = {
     "command-r-plus-104b": "its config (dense attention, layernorm)",
     "mistral-large-123b": "its config (dense attention)",
@@ -24,7 +25,6 @@ NOT_PORTED: dict[str, str] = {
     "olmoe-1b-7b": "the MoE FFN",
     "deepseek-v2-236b": "MLA attention and the MoE FFN",
     "qwen2-vl-7b": "M-RoPE and the vision-patch frontend",
-    "recurrentgemma-2b": "the RG-LRU block (K4, the RG-LRU scan kernel)",
     "seamless-m4t-medium": "the encoder-decoder model",
 }
 

@@ -1,7 +1,7 @@
 """Decoder-LM assembly (``repro.models.transformer``), for the block kinds
-of the serving slices: global and sliding-window attention with a dense
-gated MLP, and the xLSTM blocks (mLSTM and sLSTM, each with its own
-up/down projections and no MLP sublayer).
+of the serving slices: global and sliding-window attention, and the RG-LRU
+recurrent block, each with a dense gated MLP; and the xLSTM blocks (mLSTM
+and sLSTM, each with its own up/down projections and no MLP sublayer).
 
 Layers are grouped into *stages* as in the reference:
 
@@ -13,8 +13,8 @@ Layers are grouped into *stages* as in the reference:
 so parameter trees carry across unchanged.  The LM head is always a
 separate parameter ("lm_head"): the PHSFL frozen random classifier.
 
-Other block kinds (MLA, MoE, RG-LRU) raise ``NotImplementedError``
-naming the slice that brings them.  The reference's activation
+Other block kinds (MLA, MoE) raise ``NotImplementedError`` naming the
+slice that brings them.  The reference's activation
 checkpointing of the trunk (``remat``) is a training knob and waits for
 the LM training slice; ``lm_loss`` keeps its per-chunk recompute.
 """
@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
                                       SLSTM, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.init_utils import dense, embedding, norm
 from repro_torch.models.layers import apply_norm, mlp_apply, mlp_init, softcap
@@ -39,7 +40,6 @@ LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
 
 _LATER = {
     MLA_ATTN: "MLA attention comes with a later LM slice",
-    RGLRU: "the RG-LRU block comes with the K4 (RG-LRU scan) slice",
 }
 XLSTM_KINDS = (SLSTM, MLSTM)
 
@@ -110,28 +110,35 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
                       else xlstm_mod.mlstm_init)
         return {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
                 "block": block_init(gen, cfg, dtype)}
-    return {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
-            "ln2": norm(cfg.d_model, cfg.norm, dtype, gen.device),
-            "attn": attn_mod.attn_init(gen, cfg, dtype),
-            "mlp": mlp_init(gen, cfg, dtype=dtype)}
+    p = {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
+         "ln2": norm(cfg.d_model, cfg.norm, dtype, gen.device)}
+    if kind == RGLRU:
+        p["rec"] = rglru_mod.rglru_init(gen, cfg, dtype)
+    else:
+        p["attn"] = attn_mod.attn_init(gen, cfg, dtype)
+    p["mlp"] = mlp_init(gen, cfg, dtype=dtype)
+    return p
 
 
 # -------------------------------------------------------- layer apply ------
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
                 impl: str = "auto"):
-    """Full-sequence layer: pre-norm attention and MLP, both residual; or
-    a pre-norm xLSTM block, residual.  impl "auto" runs the kernels on the
-    card, "dense" the plain versions."""
+    """Full-sequence layer: pre-norm attention or RG-LRU block, then the
+    MLP, both residual; or a pre-norm xLSTM block, residual.  impl "auto"
+    runs the kernels on the card, "dense" the plain versions."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == SLSTM:
         return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h)[0]
     if kind == MLSTM:
         return x + xlstm_mod.mlstm_block_apply(
             p["block"], cfg, h, impl=impl)[0]
-    x = x + attn_mod.attn_apply(
-        p["attn"], cfg, h, window=_window(cfg, kind),
-        rope_theta=_rope_theta_for(cfg, kind),
-        softcap=cfg.attn_logit_softcap, positions=positions, impl=impl)
+    if kind == RGLRU:
+        x = x + rglru_mod.rglru_block_apply(p["rec"], cfg, h, impl=impl)[0]
+    else:
+        x = x + attn_mod.attn_apply(
+            p["attn"], cfg, h, window=_window(cfg, kind),
+            rope_theta=_rope_theta_for(cfg, kind),
+            softcap=cfg.attn_logit_softcap, positions=positions, impl=impl)
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + mlp_apply(p["mlp"], h, cfg.act)
 
@@ -145,10 +152,14 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
               else xlstm_mod.mlstm_block_apply)
         y, cache = fn(p["block"], cfg, h, cache=cache, index=index)
         return x + y, cache
-    y, cache = attn_mod.decode_attend(
-        p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
-        rope_theta=_rope_theta_for(cfg, kind),
-        softcap=cfg.attn_logit_softcap)
+    if kind == RGLRU:
+        y, cache = rglru_mod.rglru_block_apply(p["rec"], cfg, h, cache=cache,
+                                               index=index)
+    else:
+        y, cache = attn_mod.decode_attend(
+            p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
+            rope_theta=_rope_theta_for(cfg, kind),
+            softcap=cfg.attn_logit_softcap)
     x = x + y
     h = apply_norm(p["ln2"], x, cfg.norm)
     return x + mlp_apply(p["mlp"], h, cfg.act), cache
@@ -156,10 +167,12 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
 
 def init_layer_cache(cfg: ModelConfig, layer_id: int, batch: int,
                      max_len: int, dtype=torch.bfloat16, device="cpu"):
-    """The layer's decode cache: a KV cache in ``dtype``, or an xLSTM
-    layer's recurrent state, float32 whatever ``dtype`` (as the
+    """The layer's decode cache: a KV cache in ``dtype``, or an xLSTM or
+    RG-LRU layer's recurrent state, float32 whatever ``dtype`` (as the
     reference's ``init_*_cache``)."""
     kind = _layer_kind(cfg, layer_id)
+    if kind == RGLRU:
+        return rglru_mod.init_rglru_cache(cfg, batch, device)
     if kind == SLSTM:
         return xlstm_mod.init_slstm_cache(cfg, batch, device)
     if kind == MLSTM:

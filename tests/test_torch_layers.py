@@ -53,6 +53,17 @@ def test_xlstm_config_and_reduced_match_reference(kw):
     assert ours.padded_vocab == ref.padded_vocab
 
 
+@pytest.mark.parametrize("kw", [{}, {"num_layers": 8}])
+def test_recurrentgemma_config_and_reduced_match_reference(kw):
+    ours, ref = get_arch("recurrentgemma-2b"), j_get_arch("recurrentgemma-2b")
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert (dataclasses.asdict(ours.reduced(**kw))
+            == dataclasses.asdict(ref.reduced(**kw)))
+    assert ours.layer_kinds() == ref.layer_kinds()
+    assert ours.padded_vocab == ref.padded_vocab
+    assert ours.reduced(**kw).rglru.lru_width == ours.reduced(**kw).d_model
+
+
 def test_every_reference_arch_is_ported_or_named():
     from repro.configs.registry import ARCHS
     from repro_torch.configs.registry import ARCHS as PORTED

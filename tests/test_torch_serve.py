@@ -1,7 +1,7 @@
 """Port parity for the personalized serving slices: the head bank (Eq. 18)
 and its evaluation, and ``serve()`` against the reference's
 ``launch/serve.py`` at small flags, with the reference's own parameters
-carried in, on gemma3-12b and xlstm-350m (reduced).
+carried in, on gemma3-12b, xlstm-350m and recurrentgemma-2b (reduced).
 
 Tolerances (float32): 1e-5 on the head bank and the losses (four SGD
 steps on cached hidden states; summation order), 1e-4 on the decode
@@ -168,6 +168,42 @@ def test_xlstm_serve_matches_reference_main(capsys):
     assert res.generated.tolist() == ref["generated"]
 
 
+def test_recurrentgemma_head_bank_and_serve_match_reference():
+    """recurrentgemma-2b.reduced(num_layers=8) (RG-LRU and local-attention
+    layers in the lead, scan and tail stages): the head bank over one
+    trunk forward, then the decode loop through the RG-LRU caches and the
+    attention rings, against the reference's serving loop.  On the CPU K4
+    and K2 take their plain versions."""
+    from repro_torch.hopper.rglru_scan import kernel as k4
+    j_cfg, jm, jp, tp = _reference({"num_layers": 8},
+                                   arch="recurrentgemma-2b")
+    bank, ref_logits = _reference_logits(j_cfg, jm, jp, FLAGS)
+    before = (k4.launches, kernel.launches)
+    res = t_serve.serve(get_arch("recurrentgemma-2b").reduced(num_layers=8),
+                        params=tp, device="cpu", **FLAGS)
+    assert (k4.launches, kernel.launches) == before
+    np.testing.assert_allclose(res.head_bank.numpy(), np.asarray(bank),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.logits.numpy(), ref_logits, rtol=1e-4,
+                               atol=1e-4)
+    assert res.generated.tolist() == np.asarray(
+        ref_logits)[..., :j_cfg.vocab_size].argmax(-1).tolist()
+
+
+def test_recurrentgemma_serve_matches_reference_main(capsys):
+    """``--arch recurrentgemma-2b``: the reference's main at its flags (the
+    reduced config, two RG-LRU layers) against ``serve()`` with its
+    parameters."""
+    _, _, _, tp = _reference(arch="recurrentgemma-2b")
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in FLAGS.items()]
+    j_serve.main(argv + ["--arch=recurrentgemma-2b"])
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    res = t_serve.serve(get_arch("recurrentgemma-2b").reduced(), params=tp,
+                        device="cpu", **FLAGS)
+    assert res.profiles.tolist() == ref["profiles"]
+    assert res.generated.tolist() == ref["generated"]
+
+
 def test_main_prints_the_reference_fields(capsys):
     res = t_serve.main(["--device", "cpu", "--batch", "2", "--steps", "3",
                         "--clients", "2", "--prompt-len", "4"])
@@ -180,6 +216,16 @@ def test_main_prints_the_reference_fields(capsys):
 
 def test_main_serves_xlstm_on_the_cpu(capsys):
     res = t_serve.main(["--arch", "xlstm-350m", "--device", "cpu",
+                        "--batch", "2", "--steps", "3", "--clients", "2",
+                        "--prompt-len", "4"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["generated"] == res.generated.tolist()
+    assert np.array(out["generated"]).shape == (2, 3)
+    assert torch.isfinite(res.logits).all()
+
+
+def test_main_serves_recurrentgemma_on_the_cpu(capsys):
+    res = t_serve.main(["--arch", "recurrentgemma-2b", "--device", "cpu",
                         "--batch", "2", "--steps", "3", "--clients", "2",
                         "--prompt-len", "4"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

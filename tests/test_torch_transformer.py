@@ -1,9 +1,11 @@
 """Port parity for ``models/transformer.py`` and ``models/registry.py`` at
 ``gemma3-12b.reduced(num_layers=12)``: lead, scan and tail stages, five
 sliding-window layers (window 64) to each global one, qk-norm, gelu and
-the embedding scale, with the reference's own ``init`` carried in; and at
+the embedding scale, with the reference's own ``init`` carried in; at
 ``xlstm-350m.reduced(num_layers=6)``: the mLSTM and sLSTM layer kinds in
-all three stages, with their recurrent decode caches.
+all three stages, with their recurrent decode caches; and at
+``recurrentgemma-2b.reduced(num_layers=8)``: RG-LRU and local-attention
+layers (one kv head) in all three stages, each with its MLP.
 
 Tolerances (float32): 1e-4 on the hidden states and logits after twelve
 layers (summation order compounds through the residual stream), 1e-5 on
@@ -149,7 +151,6 @@ def test_embed_scale_rounds_to_the_dtype_first():
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("recurrentgemma-2b", "K4"),
     ("olmoe-1b-7b", "MoE"), ("deepseek-v2-236b", "MLA")])
 def test_other_block_kinds_raise_naming_their_slice(arch, match):
     cfg = j_get_arch(arch).reduced()
@@ -241,6 +242,105 @@ def test_xlstm_decode_loop_matches_reference(xsetup):
     for path, t in tree_leaves_with_path(tc):
         np.testing.assert_allclose(t.numpy(), want[path], rtol=TOL,
                                    atol=TOL, err_msg=path)
+    jh, _ = jm.decode_step(jp, jnp.asarray(toks[:, :1]), jc,
+                           jnp.asarray(steps, jnp.int32), return_hidden=True)
+    th, _ = tm.decode_step(tp, torch.from_numpy(toks[:, :1]), tc, steps,
+                           return_hidden=True)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL,
+                               atol=TOL)
+
+
+# --------------------------------------------------- recurrentgemma-2b -----
+# reduced(num_layers=8): lead (layer 0, RG-LRU), scan (layers 1-3: RG-LRU,
+# local attention, RG-LRU, two repeats: stacked parameters and stacked
+# caches) and tail (layer 7, RG-LRU); window 64, one kv head
+@pytest.fixture(scope="module")
+def rsetup():
+    j_cfg = j_get_arch("recurrentgemma-2b").reduced(num_layers=8)
+    cfg = get_arch("recurrentgemma-2b").reduced(num_layers=8)
+    jm, tm = j_build(j_cfg), build_model(cfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int32)
+    return j_cfg, cfg, jm, tm, jp, tp, toks
+
+
+def test_recurrentgemma_stages_and_param_tree_match_reference(rsetup):
+    j_cfg, cfg, jm, tm, jp, tp, _ = rsetup
+    stages = [(s.which, s.layer_ids, s.repeats)
+              for s in tt.compute_stages(cfg)]
+    assert stages == [(s.which, s.layer_ids, s.repeats)
+                      for s in jt.compute_stages(j_cfg)]
+    assert stages == [("lead", (0,), 1), ("scan", (1, 2, 3), 2),
+                      ("tail", (7,), 1)]
+    assert [cfg.layer_kinds()[i] for i in (1, 2, 3)] == [
+        "rglru", "local_attn", "rglru"]
+    ours = tm.init(torch.Generator().manual_seed(0))
+    assert ({p: (tuple(t.shape), t.dtype)
+             for p, t in tree_leaves_with_path(ours)}
+            == {p: (tuple(t.shape), t.dtype)
+                for p, t in tree_leaves_with_path(tp)})
+    full = get_arch("recurrentgemma-2b")
+    assert [(s.which, s.layer_ids, s.repeats)
+            for s in tt.compute_stages(full)] == [("lead", (0, 1), 1),
+                                                  ("scan", (2, 3, 4), 8)]
+
+
+def test_recurrentgemma_apply_matches_reference(rsetup):
+    """The full forward over 80 tokens (past the window of 64), with impl
+    "auto" (K4's and K2's plain versions on a CPU tensor) and "dense";
+    no kernel launches on the CPU; the loss and the prefill logits."""
+    j_cfg, cfg, jm, tm, jp, tp, toks = rsetup
+    want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)})
+    from repro_torch.hopper.rglru_scan import kernel as k4
+    before = (k4.launches, kernel.launches)
+    got, aux = tm.apply(tp, {"tokens": torch.from_numpy(toks)})
+    assert (k4.launches, kernel.launches) == before and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    dense, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)},
+                        impl="dense")
+    np.testing.assert_allclose(dense.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    labels = np.roll(toks, -1, axis=1)
+    np.testing.assert_allclose(
+        float(tm.loss(tp, {"tokens": torch.from_numpy(toks),
+                           "labels": torch.from_numpy(labels)})),
+        float(jm.loss(jp, {"tokens": jnp.asarray(toks),
+                           "labels": jnp.asarray(labels)})), rtol=1e-5)
+    jl, _ = jt.prefill(jp, j_cfg, {"tokens": jnp.asarray(toks)})
+    tl, _ = tt.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+
+
+def test_recurrentgemma_decode_loop_matches_reference(rsetup):
+    """70 one-token steps through every stage kind (past the window of 64,
+    so the local layers' rings wrap); the RG-LRU caches (float32, stacked
+    in the scan stage) are written in place and agree with the
+    reference's returned caches; logits at every step."""
+    j_cfg, cfg, jm, tm, jp, tp, toks = rsetup
+    steps = 70
+    jc = jm.init_cache(2, steps, dtype=jnp.float32)
+    tc = tm.init_cache(2, steps, dtype=torch.float32)
+    shapes = {p: tuple(t.shape) for p, t in tree_leaves_with_path(tc)}
+    assert shapes == {p: tuple(t.shape) for p, t in tree_leaves_with_path(
+        jax.tree.map(np.asarray, jc))}
+    assert shapes["['stage1']['b0']['h']"] == (2, 2, 256)
+    assert shapes["['stage1']['b1']['k']"] == (2, 2, 64, 1, 64)
+    step = jax.jit(jm.decode_step)
+    for i in range(steps):
+        tok = toks[:, i:i + 1]
+        jl, jc = step(jp, jnp.asarray(tok), jc, jnp.asarray(i, jnp.int32))
+        tl, tc2 = tm.decode_step(tp, torch.from_numpy(tok), tc, i)
+        assert tc2 is tc
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                                   atol=TOL, err_msg=f"step {i}")
+    want = dict(tree_leaves_with_path(jax.tree.map(np.asarray, jc)))
+    for path, t in tree_leaves_with_path(tc):
+        np.testing.assert_allclose(t.numpy(), want[path].astype(np.float32),
+                                   rtol=TOL, atol=TOL, err_msg=path)
     jh, _ = jm.decode_step(jp, jnp.asarray(toks[:, :1]), jc,
                            jnp.asarray(steps, jnp.int32), return_hidden=True)
     th, _ = tm.decode_step(tp, torch.from_numpy(toks[:, :1]), tc, steps,
