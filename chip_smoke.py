@@ -15,20 +15,26 @@ or fault exits non-zero; no phase's failure is caught):
    it (also printed as a line of its own), torch and CUDA versions;
 2. build: compile every kernel from the sources in the checkout, one
    ``nvcc`` per source, all started together, each with its time and
-   ptxas report;
+   ptxas report (registers, stack and spills of each kernel and
+   template, and ptxas's warnings);
 3. check: K1 on the card at the shapes its path gives it, held with
    ``torch.equal`` against its plain PyTorch version on the same inputs;
    the straight-through gradient is exactly ones;
 4. check_flash: K2 against its plain version on the card (the
-   reference's sweep, softcap, a ragged length, the head bank at the
-   reference's size, the serving path's shapes, recurrentgemma-2b's
-   10 query heads over one kv head with its window of 2048 binding; 2e-5
-   in float32, 2e-2 in bfloat16), and its backward against autograd of
-   the plain version;
+   reference's sweep, softcap, a ragged length, the bf16 kernel's tile
+   edges (lengths around its 128-row and 64-key tiles at every head
+   width, GQA 2:1 and MQA 10:1, window edges inside and on a key tile,
+   softcap, q/k/v as slices of one fused buffer), the head bank at the
+   reference's size, the serving path's shapes, recurrentgemma-2b's 10
+   query heads over one kv head with its window of 2048 binding; 2e-5 in
+   float32, 2e-2 in bfloat16, elementwise, and the whole case's relative
+   error within 1e-5 / 1e-2), and its backward against autograd of the
+   plain version;
 5. time: K1, its plain version and its bound, with CUDA events;
 6. time_flash: K2 at the serving path's two shapes (global and
-   sliding-window layers), its plain version, its bound and PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs;
+   sliding-window layers), its plain version, its bound, the fraction of
+   the bound it reaches, its rate without masks on the same inputs, and
+   PyTorch's ``scaled_dot_product_attention`` on the same inputs;
 7. reference: a small FedSim on the card against the same run on the CPU
    (the plain versions), on the same data and seed;
 8. fedsim: the CNN path at the paper's full width (``CNNConfig()``, 4 ESs
@@ -93,6 +99,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -121,6 +128,13 @@ CHECK_SHAPES = [(1, 7), (1, 16 * 16 * 16 * 64), MAIN_SHAPE,
 FLASH_MAIN = dict(b=6, s=2048, h=16, kvh=8, d=256)
 FLASH_LAYERS = {"global": 0, "local": 1024}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# ||got - want|| / ||want|| over a whole case, beside the elementwise
+# tolerance: at the serving shapes a row averages ~1024 values of
+# V ~ N(0, 1), so its outputs are ~0.05 and FLASH_TOL alone would pass a
+# key tile dropped at a window's edge
+FLASH_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# lengths around the bf16 kernel's 128-row query and 64-key tiles
+FLASH_EDGE_LENGTHS = (1, 63, 65, 127, 129, 2049)
 
 # K3 on the xlstm-350m serving path: the head bank's one trunk forward over
 # 3 clients x 2 sequences x 2048 tokens, 4 heads of dh = 2048 / 4 = 512,
@@ -188,6 +202,44 @@ def phase_device(torch):
     return smi
 
 
+def short_name(mangled: str) -> str:
+    """``flash_fwd_bf16<256>`` from an Itanium-mangled kernel name: the
+    last name of its nested name, with an integer template argument."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    if name and arg:
+        name += f"<{arg.group(1)}>"
+    return name or mangled
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, stack and spills of each kernel, from ``nvcc
+    -Xptxas=-v`` output."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": short_name(m.group(1))}
+            rows.append(cur)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
 def phase_build(kernels):
     """One nvcc per source, all started together (each build is a
     subprocess; the threads only wait on them)."""
@@ -198,11 +250,13 @@ def phase_build(kernels):
             f.result()
     wall = time.perf_counter() - t0
     for name, kernel in kernels.items():
-        ptxas = [ln.strip() for ln in kernel.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
         emit({"phase": "build", "kernel": name,
               "seconds": kernel.build_seconds, "all_builds_wall_s": wall,
-              "library": kernel.library_path().name, "ptxas": ptxas})
+              "library": kernel.library_path().name,
+              "ptxas": ptxas_report(kernel.build_log),
+              "ptxas_warnings": [ln.strip() for ln in
+                                 kernel.build_log.splitlines()
+                                 if "warning" in ln.lower()]})
 
 
 def reset_counts(kernels) -> None:
@@ -490,6 +544,20 @@ def phase_check_flash(torch, ops, ref):
                   ((2, 100, 4, 2, 64), dtype, dict(causal=True, window=7)),
                   ((1, 96, 2, 1, 16 if dtype == "float32" else 32), dtype,
                    dict(causal=False, window=20))]
+    # the bf16 kernel's tile edges (128 query rows a block, 64 keys a
+    # tile, 64-column TMA boxes): ragged lengths at every head width
+    # template (GQA 2:1), MQA 10:1, window edges inside a key tile (40,
+    # 100) and on one (64, 128) with and without causality, softcap
+    cases += [((1, s, 4, 2, d), "bfloat16", dict(causal=True))
+              for s in FLASH_EDGE_LENGTHS for d in (32, 64, 128, 256)]
+    cases += [((2, 129, 10, 1, 256), "bfloat16", dict(causal=True)),
+              ((2, 300, 10, 1, 256), "bfloat16", dict(causal=False))]
+    cases += [((2, 333, 4, 2, 128), "bfloat16", dict(causal=causal,
+                                                      window=window))
+              for window in (40, 64, 100, 128) for causal in (True, False)]
+    cases += [((1, 257, 4, 2, d), "bfloat16", dict(causal=True,
+                                                   softcap=30.0))
+              for d in (64, 256)]
     # the head bank at the reference's size (reduced gemma3: 4 heads of
     # 64, window 64, 3 clients x 2 sequences of 32), and the serving
     # path's shapes at full width
@@ -504,18 +572,39 @@ def phase_check_flash(torch, ops, ref):
         cases.append(((m["b"], m["s"], m["h"], m["kvh"], m["d"]), "bfloat16",
                       dict(causal=True, window=window)))
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
-    for i, (shape, dtype, kw) in enumerate(cases):
-        q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype), i)
+    worst_rel = dict(worst)
+
+    def compare(q, k, v, dtype, kw, **label):
         got = ops.flash_attention(q, k, v, **kw)
         want = _flash_plain(ref, q, k, v, **kw)
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
+        diff = got.float() - want.float()
+        err = float(diff.abs().max())
+        rel = float(diff.norm() / want.float().norm())
         tol = FLASH_TOL[dtype]
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
                                  atol=tol)) and got.dtype == q.dtype
+        ok = ok and rel <= FLASH_REL_TOL[dtype]
         worst[dtype] = max(worst[dtype], err)
-        rows.append({"bshkd": list(shape), "dtype": dtype, **kw,
-                     "max_abs_err": err, "ok": ok})
+        worst_rel[dtype] = max(worst_rel[dtype], rel)
+        rows.append({**label, "dtype": dtype, **kw, "max_abs_err": err,
+                     "rel_err": rel, "ok": ok})
+
+    for i, (shape, dtype, kw) in enumerate(cases):
+        q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype), i)
+        compare(q, k, v, dtype, kw, bshkd=list(shape))
+    n_main = len(FLASH_LAYERS)
+    main_rows, mqa_row = rows[-n_main:], rows[-n_main - 1]
+    # q, k, v as slices of one fused bf16 projection, read in place
+    # through the tensor maps' strides
+    for d in (64, 256):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        qkv = torch.randn(2, 129, 8, d, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+        for kw in (dict(causal=True), dict(causal=False, window=50)):
+            compare(q, k, v, "bfloat16", kw, bshkd=[2, 129, 4, 2, d],
+                    fused_slices=True)
     # backward: a recompute through the port's dense path, against
     # autograd of the plain version
     q, k, v = _flash_inputs(torch, 1, 64, 4, 2, 32, torch.float32, 99)
@@ -531,9 +620,9 @@ def phase_check_flash(torch, ops, ref):
     bad = [r for r in rows if not r["ok"]]
     emit({"phase": "check_flash", "kernel": "flash_attention",
           "cases": len(rows), "tolerance": FLASH_TOL,
-          "max_abs_err": worst, "mismatches": bad,
-          "main_shapes": rows[-len(FLASH_LAYERS):],
-          "mqa_window_binds": rows[-len(FLASH_LAYERS) - 1],
+          "rel_tolerance": FLASH_REL_TOL, "max_abs_err": worst,
+          "max_rel_err": worst_rel, "mismatches": bad,
+          "main_shapes": main_rows, "mqa_window_binds": mqa_row,
           "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
     assert not bad and grad_ok, "K2 disagrees with its plain version"
     return max(worst.values())
@@ -581,6 +670,12 @@ def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
             q, k, v, causal=True, window=window).float()).abs().max())
         pairs, flops, nbytes = flash_work(m["b"], m["s"], m["h"], m["kvh"],
                                           m["d"], window)
+        # the same inputs without any mask: every key tile of every row,
+        # no boundary tiles and no causal imbalance across blocks, so the
+        # rate of the kernel's steady loop alone
+        full_ms = event_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=False, window=0), iters=10)
+        full_flops = 4 * m["d"] * m["s"] * m["s"] * m["b"] * m["h"]
         flop_ms = flops / BF16_FLOPS * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"phase": "time_flash", "kernel": "flash_attention",
@@ -595,6 +690,9 @@ def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
                "rate_source": "NVIDIA H100 SXM data sheet: 989 TFLOP/s "
                               "dense bf16, 3.35 TB/s HBM3",
                "kernel_TFLOPs": flops / kernel_ms / 1e9,
+               "bound_fraction": max(flop_ms, byte_ms) / kernel_ms,
+               "unmasked_kernel_ms": full_ms,
+               "unmasked_TFLOPs": full_flops / full_ms / 1e9,
                "library_vs_kernel_max_abs_diff": lib_err}
         emit(row)
         out[name] = row

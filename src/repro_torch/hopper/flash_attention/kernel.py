@@ -2,10 +2,16 @@
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention/kernel.py::flash_attention_hmajor``;
-the CUDA source is ``csrc/flash_attention.cu``, which states the kernel's
-bound on the H100 (operations: 4 d flops per unmasked (q, k) pair) and
-what its design does about it (tensor cores for bfloat16, FMA for
-float32, a key-tile loop bounded by the masks).
+the CUDA source is ``csrc/flash_attention.cu``.  Its bound on the H100 is
+operations: 4 d flops per unmasked (q, k) pair at the tensor cores' 989
+TFLOP/s in bfloat16.  The bfloat16 path is built for that rate: a block
+of three warpgroups, one issuing TMA loads of Q once and of K and V
+tiles through an mbarrier ring, two running ``wgmma`` for both Q K^T
+(operands in shared memory) and P V (P from registers), with the softmax
+in registers and mask code only on the tiles where a mask binds.  The
+float32 path runs FMA in full float32.  The tensor maps are built inside
+``flash_fwd`` on the host from the strides this wrapper passes, so the
+ctypes interface is plain pointers, strides and sizes.
 
 The kernel is built by ``nvcc`` at first use into ``build/`` beside this
 file and loaded with ``ctypes`` (``repro_torch.hopper.nvcc``).  Nothing
@@ -84,7 +90,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch K2 on the current stream.  q: (B,S,H,d); k, v: (B,S,KVH,d),
     the model's layout, read through their strides.  The caller (``ops``)
     has checked device, dtype, shapes, head_dim and that the last
-    dimension is contiguous (and, for bfloat16, 16-byte aligned rows)."""
+    dimension is contiguous (and, for bfloat16, 16-byte aligned rows in a
+    layout the TMA tensor maps describe)."""
     global launches
     lib = _library()
     b, s, h, d = q.shape

@@ -48,13 +48,33 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def tma_layout_ok(shape, strides) -> bool:
+    """Whether a bfloat16 (B, S, heads, d) tensor with these strides (in
+    elements) can be described by the kernel's TMA tensor map in place:
+    16-byte aligned strides, and each dimension of more than one element
+    stepping over all of the dimensions inside it (heads over d, rows
+    over heads, batches over rows), as the tensor map nests them.
+    Contiguous tensors and slices of a fused projection pass; a
+    head-major tensor seen through a transpose does not."""
+    if strides[-1] != 1 or any(st % 8 for st in strides[:3]):
+        return False
+    inner = shape[3]
+    for dim in (2, 1, 0):
+        if shape[dim] > 1:
+            if strides[dim] < inner:
+                return False
+            inner = strides[dim] * shape[dim]
+    return True
+
+
 def _kernel_layout(t):
     """The kernel reads rows of d through strides; it needs the last
-    dimension contiguous and, in bfloat16, 16-byte aligned rows."""
+    dimension contiguous and, in bfloat16, 16-byte aligned rows laid out
+    as its TMA tensor maps describe them (``tma_layout_ok``)."""
     if t.stride(-1) != 1:
         return t.contiguous()
     if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])):
+            t.data_ptr() % 16 or not tma_layout_ok(t.shape, t.stride())):
         return t.contiguous()
     return t
 

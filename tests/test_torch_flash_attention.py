@@ -200,3 +200,34 @@ def test_params_struct_matches_the_cuda_source():
         if m:
             names += [n.strip() for n in m.group(1).split(",")]
     assert names == [f[0] for f in kernel.FlashParams._fields_]
+
+
+@pytest.mark.parametrize("case,ok", [
+    ("contiguous", True),
+    ("fused_slice", True),      # q, k, v of one fused projection
+    ("one_batch_any_stride", True),
+    ("head_major_transpose", False),
+    ("unaligned_stride", False),
+    ("overlapping_heads", False),
+])
+def test_tma_layout_rule(case, ok):
+    """Which bf16 layouts the kernel's TMA tensor maps read in place;
+    ``_kernel_layout`` copies the others to contiguous ones."""
+    if case == "contiguous":
+        t = torch.zeros(2, 33, 4, 64, dtype=torch.bfloat16)
+    elif case == "fused_slice":
+        t = torch.zeros(2, 33, 8, 64, dtype=torch.bfloat16)[:, :, 4:6]
+    elif case == "one_batch_any_stride":
+        t = torch.zeros(1, 33, 4, 64, dtype=torch.bfloat16).as_strided(
+            (1, 33, 4, 64), (8, 256, 64, 1))
+    elif case == "head_major_transpose":
+        t = torch.zeros(2, 4, 33, 64, dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "unaligned_stride":
+        t = torch.zeros(2, 33, 4, 68, dtype=torch.bfloat16)[..., :64]
+    else:
+        t = torch.zeros(2, 33, 64, dtype=torch.bfloat16).unsqueeze(2) \
+            .expand(2, 33, 4, 64)
+    assert ops.tma_layout_ok(t.shape, t.stride()) is ok
+    laid = ops._kernel_layout(t)
+    assert ops.tma_layout_ok(laid.shape, laid.stride())
+    assert (laid is t) is ok

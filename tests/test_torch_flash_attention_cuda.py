@@ -106,3 +106,53 @@ def test_cpu_tensor_never_launches(cuda):
     ops.flash_attention(torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16),
                         torch.randn(1, 8, 1, 16))
     assert kernel.launches == before
+
+
+# The bf16 kernel's tile edges: 128 query rows a block (two warpgroups of
+# 64), 64 keys a tile, d in 64-column TMA boxes (zero-filled below the
+# template's 64, 128 or 256).
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 129, 2049])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_bf16_tile_edges_on_card(cuda, s, d):
+    """Ragged lengths around the query and key tiles, every head width
+    template, GQA 2:1, causal."""
+    _check(*_qkv(cuda, 1, s, 4, 2, d, torch.bfloat16, seed=s + d),
+           causal=True, window=0)
+
+
+@pytest.mark.parametrize("s,causal,window", [
+    (129, True, 0),
+    (300, False, 0),
+    (2049, True, 2048),          # recurrentgemma's window, binding
+])
+def test_bf16_mqa_on_card(cuda, s, causal, window):
+    """MQA 10:1, recurrentgemma-2b's ten query heads over one kv head."""
+    _check(*_qkv(cuda, 2, s, 10, 1, 256, torch.bfloat16, seed=s),
+           causal=causal, window=window)
+
+
+@pytest.mark.parametrize("window", [40, 64, 100, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_window_edges_on_card(cuda, window, causal):
+    """A window edge inside a key tile (40, 100) and on a tile edge (64,
+    128), with and without causality."""
+    _check(*_qkv(cuda, 2, 333, 4, 2, 128, torch.bfloat16, seed=window),
+           causal=causal, window=window)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_bf16_softcap_on_card(cuda, d):
+    _check(*_qkv(cuda, 1, 257, 4, 2, d, torch.bfloat16, seed=d),
+           causal=True, window=0, softcap=30.0)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_bf16_strided_inputs_on_card(cuda, d):
+    """q, k, v as slices of one fused bf16 projection: the tensor maps
+    carry the fused buffer's head, row and batch strides."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    qkv = torch.randn(2, 129, 8, d, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    _check(q, k, v, causal=True, window=0)
+    _check(q, k, v, causal=False, window=50)
