@@ -35,6 +35,11 @@ or fault exits non-zero; no phase's failure is caught):
    sliding-window layers), its plain version, its bound, the fraction of
    the bound it reaches, its rate without masks on the same inputs, and
    PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+   check_flash_backward: K2's backward at one gemma3-width layer with
+   8192 tokens (past the dense recompute's 4096), global and window
+   1024: the blocked recompute's and the dense one's peak memory and
+   their gradients' difference (K2's bf16 tolerance; the blocked peak
+   below the dense logits' 4.3 GB);
 7. reference: a small FedSim on the card against the same run on the CPU
    (the plain versions), on the same data and seed;
 8. fedsim: the CNN path at the paper's full width (``CNNConfig()``, 4 ESs
@@ -52,10 +57,15 @@ or fault exits non-zero; no phase's failure is caught):
     after; then where one trunk forward's device time goes;
 12. check_mlstm: K3 against its plain version on the card (the
     reference's sweep, the reduced model's heads of 256, the serving
-    shape (6,2048,4,512) in float32 and bfloat16, ragged lengths; 2e-4 in
-    float32, one bfloat16 step more in bfloat16), and its backward
-    against autograd of the plain version;
-13. time_mlstm: K3 at the serving shape, its plain version and its bound;
+    shape (6,2048,4,512) in float32 and bfloat16, ragged lengths; the
+    bf16 kernel's tile edges (lengths around its 64-row tiles and
+    256-row state chunks at head widths 16, 20, 48, 256 and 512, q/k/v
+    as slices of one fused buffer) against the plain version on
+    zero-padded rows; 2e-4 in float32, one bfloat16 step more in
+    bfloat16), and its backward against autograd of the plain version;
+13. time_mlstm: K3 at the serving shape, its plain version and its
+    bound; in bf16 each of its three CUDA kernels alone and the floor its
+    design adds (the states' traffic);
 14. reference_serve_xlstm: ``serve()`` at
     ``xlstm-350m.reduced(num_layers=6)`` on the card against the same
     call on the CPU, same weights and seed;
@@ -145,6 +155,21 @@ MLSTM_MAIN = dict(b=6, s=2048, h=4, dh=512)
 MLSTM_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
              "bfloat16": dict(rtol=2.0 ** -7, atol=2e-4)}
 FP32_FLOPS = 67e12       # float32 outside the tensor cores, same sheet
+# the bf16 kernel's tile edges: lengths around its 64-row tiles and
+# 256-row state chunks, head widths below, off and inside its 64-column
+# boxes (20: padded with zero columns), and the models' 256 and 512
+MLSTM_EDGE_LENGTHS = (63, 64, 65, 255, 256, 257, 2049)
+MLSTM_EDGE_WIDTHS = (16, 20, 48, 256, 512)
+# F1: K2's backward at one gemma3-width layer past DENSE_MAX_SEQ; one
+# float32 (1, 16, 8192, 8192) logits tensor of the dense recompute
+FLASH_BWD = dict(b=1, s=8192, h=16, kvh=8, d=256)
+FLASH_BWD_WINDOWS = (0, 1024)
+DENSE_LOGITS_BYTES = 16 * 8192 * 8192 * 4
+# ||blocked - dense|| / ||dense|| of each gradient, beside the elementwise
+# bf16 tolerance: the sound runs read at most 1.05e-4 (both sides round
+# float32 gradients to bf16 once); a block that misses 64 keys at its
+# window's edge stays within the elementwise 2e-2
+FLASH_BWD_REL_TOL = 1e-3
 # host-clock repeats of the xlstm trunk forward on either side of its
 # profile (its time spreads widely)
 FORWARD_REPEATS = 3
@@ -699,6 +724,68 @@ def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
     return out
 
 
+def phase_check_flash_backward(torch, ops):
+    """F1: K2's backward past DENSE_MAX_SEQ (4096) tokens recomputes by
+    query blocks of Q_CHUNK (1024) rows.  One gemma3-width layer (16 query
+    heads over 8 kv heads of 256) at S = 8192, bf16, global and window
+    1024: the peak allocation of the blocked recompute and of the dense
+    one (forced by raising the threshold; it fits the card at this size),
+    and the gradients' difference.  Fails on an error above K2's bf16
+    tolerance, a relative error above FLASH_BWD_REL_TOL, or a blocked peak
+    at or above one float32 dense logits tensor (4.3 GB)."""
+    from repro_torch.models import attention
+    m = FLASH_BWD
+    q, k, v = _flash_inputs(torch, m["b"], m["s"], m["h"], m["kvh"], m["d"],
+                            torch.bfloat16, 11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    tol = FLASH_TOL["bfloat16"]
+    rows = []
+
+    def grads(window):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ops.flash_attention(*leaves, causal=True, window=window).backward(g)
+        torch.cuda.synchronize()
+        return ([t.grad for t in leaves], torch.cuda.max_memory_allocated(),
+                time.perf_counter() - t0)
+
+    for window in FLASH_BWD_WINDOWS:
+        assert m["s"] > attention.DENSE_MAX_SEQ
+        blocked, blocked_peak, blocked_s = grads(window)
+        dense_max = attention.DENSE_MAX_SEQ
+        attention.DENSE_MAX_SEQ = m["s"]
+        try:
+            dense, dense_peak, dense_s = grads(window)
+        finally:
+            attention.DENSE_MAX_SEQ = dense_max
+        errs, rels, ok = [], [], True
+        for a, b in zip(blocked, dense):
+            diff = a.float() - b.float()
+            errs.append(float(diff.abs().max()))
+            rels.append(float(diff.norm() / b.float().norm()))
+            ok = ok and bool(torch.isfinite(a).all()) and bool(
+                torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+        ok = (ok and blocked_peak < DENSE_LOGITS_BYTES
+              and max(rels) <= FLASH_BWD_REL_TOL)
+        rows.append({"window": window, "blocked_peak_GB": blocked_peak / 1e9,
+                     "dense_peak_GB": dense_peak / 1e9,
+                     "blocked_wall_s": blocked_s, "dense_wall_s": dense_s,
+                     "grad_max_abs_err": dict(zip("qkv", errs)),
+                     "grad_rel_err": dict(zip("qkv", rels)), "ok": ok})
+        del blocked, dense
+    emit({"phase": "check_flash_backward", "kernel": "flash_attention",
+          "shape": "q (1,8192,16,256), k/v (1,8192,8,256) bf16, causal",
+          "dense_max_seq": attention.DENSE_MAX_SEQ,
+          "q_chunk": attention.Q_CHUNK, "tolerance": tol,
+          "rel_tolerance": FLASH_BWD_REL_TOL,
+          "peak_limit_GB": DENSE_LOGITS_BYTES / 1e9, "layers": rows})
+    assert all(r["ok"] for r in rows), "K2's blocked backward failed"
+    return rows
+
+
 # ------------------------------------------------------------- serving ----
 def phase_reference_serve(np):
     """serve() at gemma3-12b.reduced(num_layers=12) (lead, scan and tail
@@ -857,6 +944,22 @@ def _mlstm_plain(ref, q, k, v, li, lf):
     return ref.mlstm_chunkwise(q, k, v, li, lf, chunk=ref.KERNEL_CHUNK)[0]
 
 
+def _mlstm_plain_chunked(ref, q, k, v, li, lf):
+    """The plain version at its chunk of 128 on zero rows padded to a
+    multiple of it, cut back to S (rows after t do not change h_t).  At a
+    ragged S the plain version itself takes one quadratic chunk, whose
+    float32 cumsum of the forget gates over the whole sequence drifts by
+    more than a bf16 step at S = 2049 against the float64 recurrent
+    oracle (``check_mlstm`` reads that witness on the card, and
+    tests/test_torch_mlstm_three_pass.py on the CPU)."""
+    import torch.nn.functional as F
+    s = q.shape[1]
+    pad = -s % ref.KERNEL_CHUNK
+    padded = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+              for t in (q, k, v, li, lf)]
+    return _mlstm_plain(ref, *padded)[:, :s]
+
+
 def phase_check_mlstm(torch, ops, ref):
     """K3 against its plain version on the card, on the same inputs."""
     m = MLSTM_MAIN
@@ -868,24 +971,72 @@ def phase_check_mlstm(torch, ops, ref):
               ((2, 333, 2, 64), "float32"),          # ragged: 5 chunks + 13
               ((2, 333, 2, 64), "bfloat16"),
               ((1, 1, 2, 48), "float32")]            # one position
+    # the bf16 kernel's tile edges, against the chunked plain version
+    edges = [((1, s, 2, dh), "bfloat16") for s in MLSTM_EDGE_LENGTHS
+             for dh in MLSTM_EDGE_WIDTHS]
     for dtype in ("float32", "bfloat16"):            # the serving shape
         cases.append(((m["b"], m["s"], m["h"], m["dh"]), dtype))
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
-    for i, (shape, dtype) in enumerate(cases):
-        x = _mlstm_inputs(torch, *shape, getattr(torch, dtype), i)
+    worst_ratio = dict(worst)
+
+    def tol_ratio(got, want, tol):
+        """The worst |got - want| / (atol + rtol |want|): <= 1 passes."""
+        want = want.double()
+        return float(((got.double() - want).abs()
+                      / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+    witness = []
+
+    def compare(x, dtype, plain, **label):
         got = ops.mlstm_chunk(*x)
-        want = _mlstm_plain(ref, *x)
+        want = plain(ref, *x)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        ok = (bool(torch.allclose(got.float(), want.float(),
-                                  **MLSTM_TOL[dtype]))
-              and got.dtype == x[0].dtype and got.shape == x[0].shape)
+        tol = MLSTM_TOL[dtype]
+        ratio = tol_ratio(got, want, tol)
+        ok = (ratio <= 1.0 and got.dtype == x[0].dtype
+              and got.shape == x[0].shape)
         worst[dtype] = max(worst[dtype], err)
-        rows.append({"bshd": list(shape), "dtype": dtype,
-                     "max_abs_err": err,
+        worst_ratio[dtype] = max(worst_ratio[dtype], ratio)
+        rows.append({**label, "dtype": dtype, "max_abs_err": err,
+                     "tol_ratio": ratio,
                      "max_abs_out": float(want.float().abs().max()),
                      "ok": ok})
-        del x, got, want
+
+    for i, (shape, dtype) in enumerate(edges):
+        x = _mlstm_inputs(torch, *shape, getattr(torch, dtype), 1000 + i)
+        compare(x, dtype, _mlstm_plain_chunked, bshd=list(shape),
+                tile_edge=True)
+        if shape[1] == max(MLSTM_EDGE_LENGTHS):
+            # the float64 recurrent oracle on the same inputs: the kernel
+            # and the padded plain version within MLSTM_TOL of it, the
+            # unpadded plain version (its one quadratic chunk) as read
+            tr = [t.transpose(1, 2).double() for t in x]
+            oracle = ref.mlstm_recurrent_ref(*tr, dtype=torch.float64)
+            oracle = oracle.transpose(1, 2)
+            tol = MLSTM_TOL[dtype]
+            witness.append({"bshd": list(shape), **{
+                name: tol_ratio(fn(), oracle, tol) for name, fn in (
+                    ("kernel", lambda: ops.mlstm_chunk(*x)),
+                    ("plain_padded", lambda: _mlstm_plain_chunked(ref, *x)),
+                    ("plain_one_chunk", lambda: _mlstm_plain(ref, *x)))}})
+            del tr, oracle
+        del x
+    # bf16 q, k, v as slices of one fused (B,S,H,3 dh) buffer, read in
+    # place by the tensor maps, over two state chunks
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn(2, 300, 2, 3 * 64, generator=gen, device="cuda")
+    qkv[..., 64:128] /= 8.0
+    qkv = qkv.to(torch.bfloat16)
+    gates = torch.randn(2, 300, 4, generator=gen, device="cuda")
+    compare((qkv[..., :64], qkv[..., 64:128], qkv[..., 128:],
+             gates[..., :2], F.logsigmoid(gates[..., 2:])), "bfloat16",
+            _mlstm_plain_chunked, bshd=[2, 300, 2, 64], fused_slices=True)
+    for i, (shape, dtype) in enumerate(cases):
+        x = _mlstm_inputs(torch, *shape, getattr(torch, dtype), i)
+        compare(x, dtype, _mlstm_plain, bshd=list(shape))
+        del x
     # backward: autograd of the plain version, as the reference's VJP
     x = _mlstm_inputs(torch, 1, 64, 2, 16, torch.float32, 99)
     w = torch.randn_like(x[0])
@@ -898,12 +1049,17 @@ def phase_check_mlstm(torch, ops, ref):
     grad_ok = all(torch.allclose(a.grad, b.grad, **MLSTM_TOL["float32"])
                   for a, b in zip(leaves, plain))
     bad = [r for r in rows if not r["ok"]]
+    witness_ok = all(w["kernel"] <= 1.0 and w["plain_padded"] <= 1.0
+                     for w in witness)
     emit({"phase": "check_mlstm", "kernel": "mlstm_chunk",
           "cases": len(rows), "tolerance": MLSTM_TOL,
-          "max_abs_err": worst, "mismatches": bad,
+          "max_abs_err": worst, "max_tol_ratio": worst_ratio,
+          "tile_edge_cases": len(edges), "mismatches": bad,
+          "float64_witness_tol_ratio": witness, "witness_ok": witness_ok,
           "main_shapes": rows[-2:], "backward_max_abs_err": grad_err,
           "backward_ok": grad_ok})
-    assert not bad and grad_ok, "K3 disagrees with its plain version"
+    assert not bad and grad_ok and witness_ok, \
+        "K3 disagrees with its plain version"
     return max(worst.values())
 
 
@@ -919,17 +1075,28 @@ def mlstm_work(b, s, h, dh, chunk=128, bytes_per_el=2):
     return flops, nbytes
 
 
-def phase_time_mlstm(torch, ops, ref):
+def mlstm_state_bytes(b, s, h, dh, chunk):
+    """The bf16 kernel's extra traffic: the boundary states (C as bf16 hi
+    and lo planes and n likewise, at each boundary of a state chunk but
+    the last), written once and read once."""
+    nb = -(-s // chunk) - 1
+    return 2 * b * h * nb * 2 * (dh * dh + dh) * 2
+
+
+def phase_time_mlstm(torch, ops, ref, kernel):
     """K3 at the serving shape in bf16 (and float32 for reference): the
-    kernel, its plain version and its bound.  No single PyTorch call
-    computes the mLSTM, so there is no library time."""
+    kernel, its plain version and its bound; in bf16 also each of its
+    CUDA kernels alone (CUDA events over repeated launches on one set of
+    workspaces) and the floor its design adds, the states' traffic at
+    the HBM rate.  No single PyTorch call computes the
+    mLSTM, so there is no library time."""
     m = MLSTM_MAIN
     out = {}
     for dtype, nbytes_el in (("bfloat16", 2), ("float32", 4)):
         x = _mlstm_inputs(torch, m["b"], m["s"], m["h"], m["dh"],
                           getattr(torch, dtype), 7)
-        kernel_ms = event_ms(torch, lambda: ops.mlstm_chunk(*x), iters=10,
-                             warmup=2)
+        kernel_ms = event_ms(torch, lambda: ops.mlstm_chunk(*x), iters=20,
+                             warmup=3)
         plain_ms = event_ms(torch, lambda: _mlstm_plain(ref, *x), iters=5,
                             warmup=1)
         flops, nbytes = mlstm_work(m["b"], m["s"], m["h"], m["dh"],
@@ -951,6 +1118,25 @@ def phase_time_mlstm(torch, ops, ref):
                "library_ms": None,
                "library_note": "no single PyTorch call computes the "
                                "chunkwise mLSTM"}
+        if dtype == "bfloat16":
+            passes = kernel.bf16_passes(*x)
+            for launch in passes:            # fill the workspaces in order
+                launch()
+            pass_ms = {n: event_ms(torch, f, iters=20, warmup=2)
+                       for n, f in zip(kernel.BF16_PASSES, passes)}
+            state_bytes = mlstm_state_bytes(m["b"], m["s"], m["h"], m["dh"],
+                                            kernel.STATE_CHUNK)
+            floor_ms = state_bytes / HBM_BYTES_PER_S * 1e3
+            row.update(
+                cuda_kernels_per_call=len(passes), pass_ms=pass_ms,
+                pass_share={n: t / sum(pass_ms.values())
+                            for n, t in pass_ms.items()},
+                state_bytes=state_bytes,
+                state_floor_ms=floor_ms,
+                design_floor_ms=row["bound_ms"] + floor_ms,
+                design_floor_fraction=(row["bound_ms"] + floor_ms)
+                / kernel_ms)
+            del passes
         emit(row)
         out[dtype] = row
         del x
@@ -1136,14 +1322,17 @@ def phase_serve_xlstm(torch, kernels):
                "slstm": (xm, "slstm_block_apply")}
     before = seconds_by_block_kind(torch, forward, FORWARD_REPEATS, targets)
     row, by_name = kernel_breakdown(torch, forward, 1)
-    k3_ms = sum(t for k, (t, _) in by_name.items()
-                if "mlstm_chunk_fwd" in k) / 1e3
+    # every CUDA kernel of K3 (mlstm_chunk_fwd in float32; _gates,
+    # _states and _outputs in bf16) carries this prefix
+    k3 = {k: t / 1e3 for k, (t, _) in by_name.items() if "mlstm_chunk_" in k}
+    k3_ms = sum(k3.values())
     after = seconds_by_block_kind(torch, forward, FORWARD_REPEATS, targets)
     rows = before + after
     n_slstm = sum(kind == SLSTM for kind in cfg.layer_kinds())
     emit({"phase": "serve_profile_xlstm", "what": "one trunk forward, 6 x "
           "2048 tokens, 24 layers, bf16", **row,
           "mlstm_kernel_ms": k3_ms,
+          "mlstm_kernel_ms_by_name": {k[:90]: t for k, t in k3.items()},
           "mlstm_kernel_share_of_kernel_time": k3_ms
           / row["kernel_ms_sum_per_step"]
           if row["kernel_ms_sum_per_step"] else None,
@@ -1478,6 +1667,7 @@ def main() -> int:
     flash_err = phase_check_flash(torch, fa_ops, fa_ref)
     timing = phase_time(torch, ops, ref)
     flash_timing = phase_time_flash(torch, fa_ops, fa_ref)
+    flash_backward = phase_check_flash_backward(torch, fa_ops)
     phase_reference(np)
     launches, sim = phase_fedsim(torch, np, kernels)
     phase_profile(torch, sim)
@@ -1485,7 +1675,7 @@ def main() -> int:
     phase_reference_serve(np)
     flash_launches = phase_serve(torch, kernels)
     mlstm_err = phase_check_mlstm(torch, ml_ops, ml_ref)
-    mlstm_timing = phase_time_mlstm(torch, ml_ops, ml_ref)
+    mlstm_timing = phase_time_mlstm(torch, ml_ops, ml_ref, ml_kernel)
     phase_reference_serve_xlstm(torch, np, kernels)
     mlstm_launches = phase_serve_xlstm(torch, kernels)
     rglru_err = phase_check_rglru(torch, rg_ops, rg_ref)
@@ -1519,6 +1709,10 @@ def main() -> int:
         "local": {k: loc[k] for k in ("window", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by",
                                       "library_ms")},
+        "backward_s8192": {
+            f"window_{r['window']}": {k: r[k] for k in (
+                "blocked_peak_GB", "dense_peak_GB", "grad_max_abs_err")}
+            for r in flash_backward},
         "recurrentgemma_local": {
             "shape": "q (6,2048,10,256), k/v (6,2048,1,256) bf16, window "
                      "2048", "launches": rg_flash_launches,
@@ -1534,6 +1728,7 @@ def main() -> int:
         "ms": mb["kernel_ms"], "kernel_ms": mb["kernel_ms"],
         "plain_ms": mb["plain_ms"], "bound_ms": mb["bound_ms"],
         "bound_by": mb["bound_by"], "library_ms": None,
+        "pass_ms": mb["pass_ms"],
         "float32": {k: mlstm_timing["float32"][k] for k in (
             "kernel_ms", "plain_ms", "bound_ms", "bound_by")}}, {
         "name": "rglru_scan", "route": "cuda",

@@ -4,9 +4,10 @@ Replaces ``repro.kernels.flash_attention.ops.flash_attention``.  The
 forward is the kernel; the backward recomputes attention through the
 port's dense path (``models.attention.dense_attention``) and
 differentiates that, as the reference's custom VJP does (the JAX package
-has no backward kernel).  The reference switches that recompute to its
-chunked path above 4096 tokens; the port has no chunked path yet, so its
-backward is dense at every length.
+has no backward kernel).  Up to ``DENSE_MAX_SEQ`` tokens the recompute is
+whole; above it, as the reference switches to its chunked and banded
+paths, it goes by query blocks of ``Q_CHUNK`` rows, each over only the
+keys its rows can see, so it never holds (B, H, S, S) logits.
 
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``, head-major, so the CPU path transposes around it), a CUDA
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.hopper.flash_attention import kernel
 from repro_torch.hopper.flash_attention.ref import attention_ref
+from repro_torch.hopper.tma import kernel_layout
 
 
 def _check(q, k, v, window):
@@ -48,37 +50,6 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def tma_layout_ok(shape, strides) -> bool:
-    """Whether a bfloat16 (B, S, heads, d) tensor with these strides (in
-    elements) can be described by the kernel's TMA tensor map in place:
-    16-byte aligned strides, and each dimension of more than one element
-    stepping over all of the dimensions inside it (heads over d, rows
-    over heads, batches over rows), as the tensor map nests them.
-    Contiguous tensors and slices of a fused projection pass; a
-    head-major tensor seen through a transpose does not."""
-    if strides[-1] != 1 or any(st % 8 for st in strides[:3]):
-        return False
-    inner = shape[3]
-    for dim in (2, 1, 0):
-        if shape[dim] > 1:
-            if strides[dim] < inner:
-                return False
-            inner = strides[dim] * shape[dim]
-    return True
-
-
-def _kernel_layout(t):
-    """The kernel reads rows of d through strides; it needs the last
-    dimension contiguous and, in bfloat16, 16-byte aligned rows laid out
-    as its TMA tensor maps describe them (``tma_layout_ok``)."""
-    if t.stride(-1) != 1:
-        return t.contiguous()
-    if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or not tma_layout_ok(t.shape, t.stride())):
-        return t.contiguous()
-    return t
-
-
 def _forward(q, k, v, causal, window, softcap):
     if q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -87,7 +58,7 @@ def _forward(q, k, v, causal, window, softcap):
         return out.transpose(1, 2).contiguous()
     if q.device.type == "cuda":
         return kernel.flash_attention_cuda(
-            _kernel_layout(q), _kernel_layout(k), _kernel_layout(v),
+            kernel_layout(q), kernel_layout(k), kernel_layout(v),
             causal=causal, window=window, softcap=softcap)
     raise ValueError(f"no flash attention kernel for device {q.device}")
 
@@ -101,14 +72,52 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.models.attention import dense_attention
+        from repro_torch.models import attention
         causal, window, softcap = ctx.mask
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        q, k, v = ctx.saved_tensors
+        if q.shape[1] > attention.DENSE_MAX_SEQ:
+            grads = _blocked_grads(q, k, v, g, causal, window, softcap,
+                                   attention.Q_CHUNK)
+            return (*grads, None, None, None)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         with torch.enable_grad():
-            out = dense_attention(*leaves, causal=causal, window=window,
-                                  softcap=softcap)
+            out = attention.dense_attention(*leaves, causal=causal,
+                                            window=window, softcap=softcap)
             grads = torch.autograd.grad(out, leaves, g)
         return (*grads, None, None, None)
+
+
+def _blocked_grads(q, k, v, g, causal, window, softcap, chunk):
+    """The dense recompute's gradients, one block of ``chunk`` query rows
+    at a time: the block's rows see keys [lo, hi), from the window's left
+    edge of its first row (0 without a window) to its last row (S without
+    causality), so ``q_offset`` = i0 - lo places both in the block's
+    frame.  dq is written a block at a time; dk and dv add up in float32
+    over the blocks (the leaves are float32 copies, as dense_attention
+    computes in float32), then take the inputs' dtypes once."""
+    from repro_torch.models.attention import dense_attention
+    s = q.shape[1]
+    f32 = torch.float32
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    for i0 in range(0, s, chunk):
+        i1 = min(i0 + chunk, s)
+        lo = max(0, i0 - window + 1) if window else 0
+        hi = i1 if causal else s
+        leaves = [q[:, i0:i1].to(f32).requires_grad_(),
+                  k[:, lo:hi].to(f32).requires_grad_(),
+                  v[:, lo:hi].to(f32).requires_grad_()]
+        with torch.enable_grad():
+            out = dense_attention(*leaves, causal=causal, window=window,
+                                  softcap=softcap, q_offset=i0 - lo)
+            gq, gk, gv = torch.autograd.grad(out, leaves,
+                                             g[:, i0:i1].to(f32))
+        dq[:, i0:i1] = gq
+        dk[:, lo:hi] += gk
+        dv[:, lo:hi] += gv
+        del leaves, out, gq, gk, gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

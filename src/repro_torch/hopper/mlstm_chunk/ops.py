@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.hopper.mlstm_chunk import kernel
 from repro_torch.hopper.mlstm_chunk.ref import KERNEL_CHUNK, mlstm_chunkwise
+from repro_torch.hopper.tma import kernel_layout
 
 
 def _check(q, k, v, li, lf):
@@ -55,8 +56,9 @@ def _forward(q, k, v, li, lf):
     if q.device.type == "cpu":
         return _plain(q, k, v, li, lf)
     if q.device.type == "cuda":
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+        # the last dimension contiguous and, in bf16, the layout K2's TMA
+        # tensor maps read (the same rule)
+        q, k, v = (kernel_layout(t) for t in (q, k, v))
         return kernel.mlstm_chunk_cuda(q, k, v, li, lf)
     raise ValueError(f"no mLSTM chunk kernel for device {q.device}")
 

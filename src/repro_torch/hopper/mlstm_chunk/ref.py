@@ -6,7 +6,11 @@ The oracle the CUDA kernel is held to, and the path a CPU tensor takes
 plain path, ``repro.models.xlstm.mlstm_chunkwise``), ``mlstm_ref``, the
 same re-laid-out to head-major, and the O(1) recurrent step
 ``mlstm_step`` (the model's decode step) with ``mlstm_recurrent_ref``,
-the step-by-step oracle and ground truth for both forms.
+the step-by-step oracle and ground truth for both forms.  Beside them,
+``mlstm_three_pass``, a plain emulation of the bf16 CUDA kernel's scheme
+(gates, then the chunk-boundary states, then the outputs, with the
+kernel's bf16 hi/lo splits), which only the tests use: it shows the
+scheme's numerics on the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import torch
 
 MLSTM_CHUNK = 256          # the model's chunk (repro.models.xlstm)
 KERNEL_CHUNK = 128         # the reference kernel's chunk (mlstm_ref)
+STATE_CHUNK = 256          # the bf16 kernel's state chunk (the .cu's kChunk)
+TILE = 64                  # the bf16 kernel's query and key tiles
 NEG_BIG = -1e30
 
 
@@ -83,11 +89,11 @@ def mlstm_step(q, k, v, li, lf, carry):
     """O(1) recurrent decode step.  q,k,v: (B,1,H,dh); li,lf: (B,1,H).
 
     Updates the carry (C, n, m) **in place** and returns (h (B,1,H,dh),
-    carry)."""
+    carry).  Computes in the carry's dtype (float32 in the model)."""
     C, n, m_prev = carry
-    f32 = torch.float32
-    qs, ks, vs = (t[:, 0].to(f32) for t in (q, k, v))
-    lis, lfs = li[:, 0].to(f32), lf[:, 0].to(f32)
+    ct = C.dtype
+    qs, ks, vs = (t[:, 0].to(ct) for t in (q, k, v))
+    lis, lfs = li[:, 0].to(ct), lf[:, 0].to(ct)
     m_new = torch.maximum(lfs + m_prev, lis)
     fgate = torch.exp(lfs + m_prev - m_new)[..., None]
     igate = torch.exp(lis - m_new)[..., None]
@@ -109,13 +115,14 @@ def mlstm_ref(q, k, v, li, lf, chunk: int = KERNEL_CHUNK):
     return h.transpose(1, 2)
 
 
-def mlstm_recurrent_ref(q, k, v, li, lf):
-    """Step-by-step recurrent oracle.  Same layout as ``mlstm_ref``."""
+def mlstm_recurrent_ref(q, k, v, li, lf, dtype=torch.float32):
+    """Step-by-step recurrent oracle.  Same layout as ``mlstm_ref``; the
+    carry and the arithmetic in ``dtype`` (float64 inputs and dtype make
+    the float64 witness the kernel's checks use at long ragged S)."""
     b, h, s, dh = q.shape
-    f32 = torch.float32
-    carry = (q.new_zeros((b, h, dh, dh), dtype=f32),
-             q.new_zeros((b, h, dh), dtype=f32),
-             q.new_full((b, h), NEG_BIG, dtype=f32))
+    carry = (q.new_zeros((b, h, dh, dh), dtype=dtype),
+             q.new_zeros((b, h, dh), dtype=dtype),
+             q.new_full((b, h), NEG_BIG, dtype=dtype))
     outs = []
     for t in range(s):
         ht, carry = mlstm_step(q[:, :, t][:, None], k[:, :, t][:, None],
@@ -123,3 +130,85 @@ def mlstm_recurrent_ref(q, k, v, li, lf):
                                lf[:, :, t][:, None], carry)
         outs.append(ht[:, 0])
     return torch.stack(outs, dim=2)                        # (B,H,S,dh)
+
+
+def _split(x):
+    """x (float32) as bf16 hi + lo, each widened back: hi = bf16(x), lo =
+    bf16(x - hi), together about 2^-17 relative."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def mlstm_three_pass(q, k, v, li, lf, state_chunk: int = STATE_CHUNK,
+                     tile: int = TILE):
+    """The bf16 kernel's scheme, step for step in plain PyTorch (tests
+    only).  q,k,v: (B,S,H,dh); li,lf: (B,S,H) float32 -> h in q's dtype.
+
+    1. gates: per chunk of ``state_chunk`` rows a, g, M, m, the decay
+       exp(m_prev - M_t), exp(-m_t), w_s and f_L, in float32;
+    2. states: C and n at each chunk boundary, C += K^T (wV_hi + wV_lo)
+       summed in float32, stored as bf16 hi and lo planes;
+    3. outputs: Q C_hi + Q C_lo and q . (n_hi + n_lo), scaled by the
+       decay; then key tiles of ``tile`` up to the diagonal, P = (Q K^T) .
+       D in float32, its row sums into the denominator, P_hi V + P_lo V;
+       the output rounded once."""
+    b, s, h, dh = q.shape
+    f32 = torch.float32
+    L = state_chunk
+    nc = -(-s // L)
+    out = torch.empty((b, s, h, dh), dtype=f32, device=q.device)
+    for bi in range(b):
+        for hi_ in range(h):
+            qh, kh, vh = (t[bi, :, hi_].to(f32) for t in (q, k, v))
+            lih, lfh = li[bi, :, hi_].to(f32), lf[bi, :, hi_].to(f32)
+            m_prev = torch.tensor(NEG_BIG, dtype=f32, device=q.device)
+            C = torch.zeros((dh, dh), dtype=f32, device=q.device)
+            n = torch.zeros(dh, dtype=f32, device=q.device)
+            planes = None                      # (C_hi, C_lo, n_hi, n_lo)
+            for c in range(nc):
+                r0, r1 = c * L, min(s, (c + 1) * L)
+                a = torch.cumsum(lfh[r0:r1], 0)
+                g = lih[r0:r1] - a
+                M = torch.maximum(m_prev, torch.cummax(g, 0).values)
+                m_t = a + M
+                decay = torch.exp(m_prev - M)
+                low = torch.exp(-m_t)
+                qc, kc, vc = qh[r0:r1], kh[r0:r1], vh[r0:r1]
+                rows = r1 - r0
+                # -- outputs: the inter-chunk part from the stored planes
+                if planes is None:
+                    o = torch.zeros((rows, dh), dtype=f32, device=q.device)
+                    qn = torch.zeros(rows, dtype=f32, device=q.device)
+                else:
+                    c_hi, c_lo, n_hi, n_lo = planes
+                    o = (qc @ c_hi + qc @ c_lo) * decay[:, None]
+                    qn = (qc @ n_hi + qc @ n_lo) * decay
+                rsum = torch.zeros(rows, dtype=f32, device=q.device)
+                for t0 in range(0, rows, tile):
+                    t1 = min(rows, t0 + tile)
+                    tpos = torch.arange(t0, t1, device=q.device)
+                    for s0 in range(0, t1, tile):
+                        s1 = min(rows, s0 + tile)
+                        spos = torch.arange(s0, s1, device=q.device)
+                        keep = spos[None, :] <= tpos[:, None]
+                        dmat = torch.where(
+                            keep, torch.exp(g[None, s0:s1]
+                                            - M[t0:t1, None]), 0.0)
+                        p = (qc[t0:t1] @ kc[s0:s1].T) * dmat
+                        rsum[t0:t1] += p.sum(1)
+                        p_hi, p_lo = _split(p)
+                        o[t0:t1] += p_hi @ vc[s0:s1] + p_lo @ vc[s0:s1]
+                den = torch.maximum((rsum + qn).abs(), low)
+                out[bi, r0:r1, hi_] = o / den[:, None]
+                # -- states: the boundary after this chunk (never after
+                # the last, which no output reads)
+                if c < nc - 1:
+                    M_L = M[-1]
+                    w = torch.exp(g - M_L)
+                    f_L = torch.exp(m_prev - M_L)
+                    wv_hi, wv_lo = _split(w[:, None] * vc)
+                    C = C * f_L + (kc.T @ wv_hi + kc.T @ wv_lo)
+                    n = n * f_L + kc.T @ w
+                    planes = (*_split(C), *_split(n))
+                    m_prev = m_t[-1]
+    return out.to(q.dtype)

@@ -4,10 +4,14 @@ decode (``repro.models.attention``).
 Path selection (``impl``):
   - ``"auto"`` and ``"flash"``: the flash attention wrapper
     (``repro_torch.hopper.flash_attention.ops``), K2 on the card.  The
-    reference's "auto" picks its pure-JAX chunked and banded paths at long
-    sequences only to bound memory, which K2 does itself, so the port has
-    neither.
-  - ``"dense"``: the masked softmax below (also the backward of K2).
+    reference's "auto" picks its pure-JAX chunked and banded paths above
+    ``DENSE_MAX_SEQ`` tokens to bound memory; K2's forward does that
+    itself, so the port has neither as a forward path.
+  - ``"dense"``: the masked softmax below.  K2's backward differentiates
+    it: whole up to ``DENSE_MAX_SEQ`` tokens, and above that by query
+    blocks of ``Q_CHUNK`` rows over only the keys a block can see (the
+    reference's banded path on a windowed layer, ``q_offset`` shifting the
+    positions), so its live memory is O(Q_CHUNK x keys), not O(S^2).
   - decode (one token): dense tensor code over the cache, as in the
     reference; no kernel.
 
@@ -26,6 +30,8 @@ from repro_torch.hopper.flash_attention.ops import flash_attention
 from repro_torch.models.init_utils import dense, norm
 from repro_torch.models.layers import apply_norm, apply_rope
 
+DENSE_MAX_SEQ = 4096          # longest seq K2's backward recomputes whole
+Q_CHUNK = 1024                # query rows a block of the blocked recompute
 NEG_INF = -2.0 ** 30          # large-negative instead of -inf (NaN-safe masks)
 
 

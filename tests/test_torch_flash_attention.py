@@ -19,6 +19,7 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_hmajor
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro_torch.hopper import tma
 from repro_torch.hopper.flash_attention import kernel, ops
 from repro_torch.hopper.flash_attention.ref import attention_ref
 
@@ -212,7 +213,7 @@ def test_params_struct_matches_the_cuda_source():
 ])
 def test_tma_layout_rule(case, ok):
     """Which bf16 layouts the kernel's TMA tensor maps read in place;
-    ``_kernel_layout`` copies the others to contiguous ones."""
+    ``kernel_layout`` copies the others to contiguous ones."""
     if case == "contiguous":
         t = torch.zeros(2, 33, 4, 64, dtype=torch.bfloat16)
     elif case == "fused_slice":
@@ -227,7 +228,7 @@ def test_tma_layout_rule(case, ok):
     else:
         t = torch.zeros(2, 33, 64, dtype=torch.bfloat16).unsqueeze(2) \
             .expand(2, 33, 4, 64)
-    assert ops.tma_layout_ok(t.shape, t.stride()) is ok
-    laid = ops._kernel_layout(t)
-    assert ops.tma_layout_ok(laid.shape, laid.stride())
+    assert tma.tma_layout_ok(t.shape, t.stride()) is ok
+    laid = tma.kernel_layout(t)
+    assert tma.tma_layout_ok(laid.shape, laid.stride())
     assert (laid is t) is ok

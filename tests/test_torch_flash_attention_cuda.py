@@ -156,3 +156,40 @@ def test_bf16_strided_inputs_on_card(cuda, d):
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     _check(q, k, v, causal=True, window=0)
     _check(q, k, v, causal=False, window=50)
+
+
+# F1: K2's backward above DENSE_MAX_SEQ tokens recomputes by query blocks.
+# One float32 (B, H, S, S) logits tensor of the dense recompute at gemma3's
+# 16 query heads and S = 8192: 4.29 GB.
+DENSE_LOGITS_BYTES = 16 * 8192 * 8192 * 4
+
+
+@pytest.mark.parametrize("window", [0, 1024])
+def test_long_backward_memory_is_bounded_on_card(cuda, monkeypatch, window):
+    """One gemma3-width layer (16 query heads over 8 kv heads of 256),
+    S = 8192, bf16, global and window 1024: the blocked recompute's peak
+    allocation stays below one dense logits tensor, and its gradients
+    agree with the dense recompute's (forced by raising the threshold)
+    within K2's bf16 tolerance."""
+    from repro_torch.models import attention
+    q, k, v = _qkv(cuda, 1, 8192, 16, 8, 256, torch.bfloat16, seed=window)
+    g = torch.randn_like(q)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.flash_attention(*leaves, causal=True, window=window).backward(g)
+        return [t.grad for t in leaves]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocked = grads()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert peak < DENSE_LOGITS_BYTES, peak
+    monkeypatch.setattr(attention, "DENSE_MAX_SEQ", 8192)
+    dense = grads()
+    for a, b in zip(blocked, dense):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(),
+                                   rtol=TOL[torch.bfloat16],
+                                   atol=TOL[torch.bfloat16])

@@ -204,3 +204,22 @@ def test_params_struct_matches_the_cuda_source():
             names += [n.strip() for n in m.group(1).split(",")]
     assert names == [f[0] for f in kernel.MlstmParams._fields_]
     assert f"kMaxHeadDim = {kernel.MAX_HEAD_DIM};" in src
+    # the bf16 workspaces the wrapper sizes: rows a state chunk, and the
+    # gate planes a (b, h)
+    assert f"constexpr int kChunk = {kernel.STATE_CHUNK};" in src
+    planes = src[src.index("enum { kG2 = 0"):]
+    planes = planes[:planes.index("};")]
+    assert planes.count(",") == kernel.GATE_PLANES
+
+
+@pytest.mark.parametrize("d,want", [
+    (16, 16), (20, 64), (48, 48), (64, 64),     # one 64-column box
+    (100, 128), (104, 104), (128, 128),         # partly in a second box
+    (136, 256), (200, 200), (256, 256),         # every box holds some of d
+    (260, 512), (456, 456), (512, 512)])
+def test_bf16_head_width_rule(d, want):
+    """The bf16 passes take d as it is where it is a multiple of 8 (TMA's
+    16-byte rule) and each 64-column box of the output pass's template
+    width (64, 128, 256, 512) holds some of it; otherwise the wrapper pads
+    q, k and v with zero columns to that width."""
+    assert kernel.bf16_head_dim(d) == want
