@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's five paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -8,7 +8,9 @@ quantize-dequantize), personalized LM serving on gemma3-12b
 (``launch/serve.py``, kernel K2, flash attention), personalized LM
 serving on xlstm-350m (the same entry point, kernel K3, the chunkwise
 mLSTM) and on recurrentgemma-2b (the same entry point, kernels K4, the
-RG-LRU scan, and K2).  Phases, each printing one JSON line (any mismatch
+RG-LRU scan, and K2), and PHSFL training of those LMs
+(``launch/train.py``: K3 on xlstm-350m, K4 and K2 on recurrentgemma-2b).
+Phases, each printing one JSON line (any mismatch
 or fault exits non-zero; no phase's failure is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
@@ -26,7 +28,8 @@ or fault exits non-zero; no phase's failure is caught):
    width, GQA 2:1 and MQA 10:1, window edges inside and on a key tile,
    softcap, q/k/v as slices of one fused buffer), the head bank at the
    reference's size, the serving path's shapes, recurrentgemma-2b's 10
-   query heads over one kv head with its window of 2048 binding; 2e-5 in
+   query heads over one kv head with its window of 2048 binding and at
+   the shapes train_rglru gives it (2 and 4 x 512 tokens); 2e-5 in
    float32, 2e-2 in bfloat16, elementwise, and the whole case's relative
    error within 1e-5 / 1e-2), and its backward against autograd of the
    plain version;
@@ -57,7 +60,9 @@ or fault exits non-zero; no phase's failure is caught):
     after; then where one trunk forward's device time goes;
 12. check_mlstm: K3 against its plain version on the card (the
     reference's sweep, the reduced model's heads of 256, the serving
-    shape (6,2048,4,512) in float32 and bfloat16, ragged lengths; the
+    shape (6,2048,4,512) in float32 and bfloat16, the training shapes
+    (2 and 8 sequences of 256 tokens, 2 and 4 of 2048) in bf16, ragged
+    lengths; the
     bf16 kernel's tile edges (lengths around its 64-row tiles and
     256-row state chunks at head widths 16, 20, 48, 256 and 512, q/k/v
     as slices of one fused buffer) against the plain version on
@@ -80,8 +85,9 @@ or fault exits non-zero; no phase's failure is caught):
     time) and one decode step's;
 16. check_rglru: K4 against its plain version on the card (the
     reference's sweep in float32 and bfloat16, the serving shape
-    (6,2048,2560) in float32 from a nonzero h0, ragged lengths and
-    widths; 1e-4 in float32, 5e-2 in bfloat16), and its backward against
+    (6,2048,2560) in float32 from a nonzero h0, the training shapes
+    (2 and 4 x 512) in float32, ragged lengths and widths; 1e-4 in
+    float32, 5e-2 in bfloat16), and its backward against
     autograd through the parallel-prefix form (1e-4);
 17. time_rglru: K4 at the serving shape, its plain version and its bound;
     K2 at recurrentgemma-2b's attention shape, its plain version, its
@@ -96,8 +102,27 @@ or fault exits non-zero; no phase's failure is caught):
     before and read just after; then where one trunk forward's time goes
     (device kernels, and host-clock seconds by block kind: RG-LRU, local
     attention, MLP) and one decode step's;
-20. the kernels line, then ``{"ok": true, "device": {...}}`` as the last
-    line.
+20. reference_train: ``launch/train.train()`` at ``xlstm-350m.reduced()``
+    (float32) on the card against the same call on the CPU, same
+    parameters and batches, 2 rounds of 2 clients: losses, final
+    parameters, head bank and both evaluations within K3's 2e-4;
+21. train_xlstm: PHSFL training at xlstm-350m's published config whole
+    (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 2
+    rounds, then the head bank and both evaluations, counts set to 0
+    just before and read just after; the head frozen bit for bit, the
+    clients equal after the edge step, a positive personalization gain;
+    then one local step's profile (forward and backward on the host's
+    clock, each block kind's share, busy share, kernel time by name);
+    train_xlstm_2048: the same checks for one round at the published
+    context of 2048 tokens, 2 clients of one local step;
+22. train_rglru: recurrentgemma-2b's published widths cut to 3 layers,
+    2 clients, one round of one step on 2 x 512 tokens, then a round of
+    2 ESs with global_sync (Eq. 16): K4 and K2 counts, peak memory;
+23. resume_train: ``launch/train.py``'s ``main`` on the card, 2 rounds
+    against 1 round, abort, resume: the final state files bit-equal;
+24. the kernels line (each kernel's launches on its serving or CNN path,
+    and on each training phase as that phase read them), then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are not beside this script.
@@ -105,6 +130,7 @@ port's sources are not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -112,6 +138,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -185,6 +212,45 @@ FLASH_MQA = dict(b=6, s=2048, h=10, kvh=1, d=256)
 RGLRU_WINDOW = 2048
 # host-clock repeats of the recurrentgemma trunk forward before its profile
 RGLRU_FORWARD_REPEATS = 2
+
+# LM training (launch/train.py).  reference_train: the reduced xlstm-350m
+# (float32, so K3's float32 route) on the card against the CPU, at the
+# verify recipe's flags.  Tolerance from K3's: the reference's mLSTM 2e-4
+# (MLSTM_TOL["float32"]) on losses, parameters, heads and evaluations.
+TRAIN_REFERENCE = dict(rounds=2, clients=2, local_steps=2, micro=2, seq=64,
+                       lr=0.05, finetune_steps=5, seed=0)
+TRAIN_TOL = MLSTM_TOL["float32"]
+# train_xlstm: the whole published config on the reference CLI's traffic
+# (4 clients in 1 ES, kappa0 = 2 steps of micro-batch 2, 5 head steps), 2
+# rounds; 256 tokens (not 2048: the sLSTM's Python loop over time sets
+# the time) and the paper's eta = 0.01 (TrainConfig's default)
+TRAIN_XLSTM = dict(rounds=2, clients=4, local_steps=2, micro=2, seq=256,
+                   lr=0.01, finetune_steps=5, seed=0)
+# train_xlstm_2048: one round at the published context of 2048 tokens
+# (eight of K3's 256-row state chunks a sequence), cut to 2 clients of one
+# local step: a round of the CLI's 4 clients x 2 steps at 2048 tokens took
+# 370-448 s on the H100's host (PERF.md), most of the 1200 s this script has
+TRAIN_XLSTM_CONTEXT = dict(TRAIN_XLSTM, rounds=1, clients=2, local_steps=1,
+                           seq=2048)
+# host-clock repeats of the profiled local step's forward and backward
+TRAIN_STEP_REPEATS = 3
+# train_rglru: recurrentgemma-2b's published widths cut to 3 layers
+# (RG-LRU, RG-LRU, local attention), 2 clients, 1 round of one step on
+# 2 x 512 tokens (K4's backward is a Python loop over S)
+TRAIN_RGLRU_LAYERS = 3
+TRAIN_RGLRU = dict(rounds=1, clients=2, local_steps=1, micro=2, seq=512,
+                   lr=0.01, finetune_steps=5, seed=0)
+# resume_train: launch/train.py's main at the reduced config, as the
+# reference's ``make resume-smoke`` on the ideal network
+RESUME_FLAGS = ["--rounds", "2", "--clients", "2", "--seq", "64",
+                "--ckpt-every", "1"]
+
+
+def train_batches(kw) -> tuple:
+    """The batch sizes a training run hands the kernels: ``micro`` in a
+    local step, clients x micro in the head bank's and the evaluations'
+    one trunk forward."""
+    return kw["micro"], kw["clients"] * kw["micro"]
 
 
 def emit(obj) -> None:
@@ -593,6 +659,11 @@ def phase_check_flash(torch, ops, ref):
     mqa = FLASH_MQA
     cases.append(((mqa["b"], 2560, mqa["h"], mqa["kvh"], mqa["d"]),
                   "bfloat16", dict(causal=True, window=RGLRU_WINDOW)))
+    # the training path's shapes (train_rglru): a local step's batch and
+    # the head bank's and evaluations' one
+    cases += [((b, TRAIN_RGLRU["seq"], mqa["h"], mqa["kvh"], mqa["d"]),
+               "bfloat16", dict(causal=True, window=RGLRU_WINDOW))
+              for b in train_batches(TRAIN_RGLRU)]
     for name, window in FLASH_LAYERS.items():
         cases.append(((m["b"], m["s"], m["h"], m["kvh"], m["d"]), "bfloat16",
                       dict(causal=True, window=window)))
@@ -619,7 +690,8 @@ def phase_check_flash(torch, ops, ref):
         q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype), i)
         compare(q, k, v, dtype, kw, bshkd=list(shape))
     n_main = len(FLASH_LAYERS)
-    main_rows, mqa_row = rows[-n_main:], rows[-n_main - 1]
+    main_rows, mqa_row = rows[-n_main:], rows[-n_main - 3]
+    train_rows = rows[-n_main - 2:-n_main]
     # q, k, v as slices of one fused bf16 projection, read in place
     # through the tensor maps' strides
     for d in (64, 256):
@@ -648,6 +720,7 @@ def phase_check_flash(torch, ops, ref):
           "rel_tolerance": FLASH_REL_TOL, "max_abs_err": worst,
           "max_rel_err": worst_rel, "mismatches": bad,
           "main_shapes": main_rows, "mqa_window_binds": mqa_row,
+          "train_shapes": train_rows,
           "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
     assert not bad and grad_ok, "K2 disagrees with its plain version"
     return max(worst.values())
@@ -974,6 +1047,12 @@ def phase_check_mlstm(torch, ops, ref):
     # the bf16 kernel's tile edges, against the chunked plain version
     edges = [((1, s, 2, dh), "bfloat16") for s in MLSTM_EDGE_LENGTHS
              for dh in MLSTM_EDGE_WIDTHS]
+    # the training path's shapes (train_xlstm, train_xlstm_2048): a local
+    # step's batch and the head bank's and evaluations' one, bf16
+    train = [((b, kw["seq"], m["h"], m["dh"]), "bfloat16")
+             for kw in (TRAIN_XLSTM, TRAIN_XLSTM_CONTEXT)
+             for b in train_batches(kw)]
+    cases += train
     for dtype in ("float32", "bfloat16"):            # the serving shape
         cases.append(((m["b"], m["s"], m["h"], m["dh"]), dtype))
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
@@ -1056,7 +1135,9 @@ def phase_check_mlstm(torch, ops, ref):
           "max_abs_err": worst, "max_tol_ratio": worst_ratio,
           "tile_edge_cases": len(edges), "mismatches": bad,
           "float64_witness_tol_ratio": witness, "witness_ok": witness_ok,
-          "main_shapes": rows[-2:], "backward_max_abs_err": grad_err,
+          "main_shapes": rows[-2:],
+          "train_shapes": rows[-2 - len(train):-2],
+          "backward_max_abs_err": grad_err,
           "backward_ok": grad_ok})
     assert not bad and grad_ok and witness_ok, \
         "K3 disagrees with its plain version"
@@ -1388,8 +1469,13 @@ def phase_check_rglru(torch, ops, ref):
     cases += [((6, 160, 256), "float32"),            # reduced model's bank
               ((2, 1, m["w"]), "float32"),           # one step
               ((2, 2047, 100), "float32"),           # ragged S and W
-              ((1, 333, 37), "bfloat16"),
-              ((m["b"], m["s"], m["w"]), "bfloat16"),
+              ((1, 333, 37), "bfloat16")]
+    # the training path's shapes (train_rglru): a local step's batch and
+    # the head bank's and evaluations' one, float32 as the model's gates
+    train = [((b, TRAIN_RGLRU["seq"], m["w"]), "float32")
+             for b in train_batches(TRAIN_RGLRU)]
+    cases += train
+    cases += [((m["b"], m["s"], m["w"]), "bfloat16"),
               ((m["b"], m["s"], m["w"]), "float32")]  # the serving shape
     rows, worst = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (shape, dtype) in enumerate(cases):
@@ -1425,6 +1511,7 @@ def phase_check_rglru(torch, ops, ref):
     emit({"phase": "check_rglru", "kernel": "rglru_scan",
           "cases": len(rows), "tolerance": RGLRU_TOL,
           "max_abs_err": worst, "mismatches": bad, "main_shape": rows[-1],
+          "train_shapes": rows[-2 - len(train):-2],
           "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
     assert not bad and grad_ok, "K4 disagrees with its plain version"
     return max(worst.values())
@@ -1640,6 +1727,397 @@ def phase_serve_rglru(torch, kernels):
     return counts["rglru_scan"], counts["flash_attention"]
 
 
+# --------------------------------------------------------- LM training ----
+def _train_forwards(kw) -> int:
+    """Trunk forwards of one ``train()``: a forward per local step of each
+    client and round, then the head bank's one and the two evaluations'
+    (the backward differentiates the plain versions: no launch)."""
+    return kw["rounds"] * kw["clients"] * kw["local_steps"] + 3
+
+
+def _replicas_equal(torch, params) -> bool:
+    from repro_torch.utils.tree import tree_leaves
+    return all(torch.equal(x[c], x[0]) for x in tree_leaves(params)
+               for c in range(1, x.shape[0]))
+
+
+def _heads_frozen(torch, params, head0) -> bool:
+    w = params["lm_head"]["w"]
+    return all(torch.equal(w[c], head0) for c in range(w.shape[0]))
+
+
+def phase_reference_train(torch, np, kernels):
+    """train() at xlstm-350m.reduced() (float32: K3's float32 route) on the
+    card against the same call on the CPU: the same parameters and
+    batches, 2 rounds of 2 clients.  Per-round losses, the final
+    parameters, the head bank and both evaluations within TRAIN_TOL
+    (K3's 2e-4); on the card the head stays bit-identical and the
+    clients equal, and K3 runs once per mLSTM layer a forward."""
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import path_leaves, tree_map
+    cfg = get_arch("xlstm-350m").reduced()
+    params = build_model(cfg).init(make_generator(0, "cpu"))
+    log = MetricLogger("reference_train", sys.stderr)
+    reset_counts(kernels)
+    card = train(cfg, params=tree_map(lambda t: t.cuda(), params),
+                 device="cuda", log=log, **TRAIN_REFERENCE)
+    launches = read_counts(kernels)
+    cpu = train(cfg, params=params, device="cpu", log=log, **TRAIN_REFERENCE)
+    diffs = {"losses": float(np.abs(np.subtract(card.losses,
+                                                cpu.losses)).max())}
+    np.testing.assert_allclose(card.losses, cpu.losses, **TRAIN_TOL,
+                               err_msg="losses")
+    for name in ("head_bank", "finetune_losses", "global_eval",
+                 "personalized_eval"):
+        a = getattr(card, name).cpu().numpy()
+        b = getattr(cpu, name).numpy()
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, b, **TRAIN_TOL, err_msg=name)
+        diffs[name] = float(np.abs(a - b).max())
+    worst = 0.0
+    cpu_leaves = dict(path_leaves(cpu.params))
+    for path, a in path_leaves(card.params):
+        a, b = a.cpu().numpy(), cpu_leaves[path].numpy()
+        np.testing.assert_allclose(a, b, **TRAIN_TOL, err_msg=path)
+        worst = max(worst, float(np.abs(a - b).max()))
+    diffs["params"] = worst
+    n_mlstm = sum(k == MLSTM for k in cfg.layer_kinds())
+    expected = _train_forwards(TRAIN_REFERENCE) * n_mlstm
+    frozen = _heads_frozen(torch, card.params, params["lm_head"]["w"].cuda())
+    synced = _replicas_equal(torch, card.params)
+    emit({"phase": "reference_train", "config": cfg.name,
+          "dtype": cfg.dtype, **TRAIN_REFERENCE,
+          "losses_card": card.losses, "losses_cpu": cpu.losses,
+          "cuda_vs_cpu_max_abs_diff": diffs, "tol": TRAIN_TOL,
+          "gain_card": card.personalization_gain,
+          "gain_cpu": cpu.personalization_gain, "launches": launches,
+          "mlstm_launches_expected": expected, "head_frozen": frozen,
+          "clients_equal": synced})
+    assert frozen and synced, (frozen, synced)
+    assert launches["mlstm_chunk"] == expected, (launches, expected)
+    assert (launches["quantize"] == launches["flash_attention"]
+            == launches["rglru_scan"] == 0), launches
+    return launches
+
+
+def backward_seconds_by_block_kind(torch, loss_fn, repeats, targets):
+    """Host-clock seconds of each block kind's share of a backward pass:
+    each block call of the forward gets gradient hooks on its output
+    (fires when its backward starts) and on its input (fires once its
+    backward is done), each synchronised; the blocks run one after
+    another, so the spans do not overlap.  ``loss_fn`` builds the graph
+    (its forward is not timed); targets as ``seconds_by_block_kind``."""
+    spent, starts = {}, {}
+    orig = {kind: getattr(mod, name) for kind, (mod, name) in targets.items()}
+
+    def stamp():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def hooked(kind):
+        def call(p, cfg, x, *a, **kw):
+            y, cache = orig[kind](p, cfg, x, *a, **kw)
+            key = object()
+
+            def begin(g):
+                starts[key] = stamp()
+
+            def end(g):
+                spent[kind] += stamp() - starts.pop(key)
+
+            y.register_hook(begin)
+            x.register_hook(end)
+            return y, cache
+        return call
+
+    rows = []
+    for kind, (mod, name) in targets.items():
+        setattr(mod, name, hooked(kind))
+    try:
+        for _ in range(repeats):
+            spent.update({kind: 0.0 for kind in targets})
+            loss, leaves = loss_fn()
+            _, wall = sync_time(torch, lambda: torch.autograd.grad(
+                loss, leaves))
+            rows.append({"wall_s": wall, **{f"{kind}_s": spent[kind]
+                                            for kind in targets}})
+            del loss, leaves
+    finally:
+        for kind, (mod, name) in targets.items():
+            setattr(mod, name, orig[kind])
+    return rows
+
+
+def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
+                      profile=True):
+    """PHSFL training at xlstm-350m's published config whole (24 layers,
+    d_model 1024, mLSTM heads of 512, vocab 50304, bf16) through
+    train(): the reference CLI's traffic (4 clients in 1 ES, kappa0 = 2
+    local steps of micro-batch 2, 5 head steps) with lr 0.01, the paper's
+    eta; TRAIN_XLSTM runs 2 rounds at 256 tokens a sequence (the sLSTM's
+    Python loop over time), TRAIN_XLSTM_CONTEXT one round of 2 clients x
+    one step at the published 2048.  Counts set to 0 just before and
+    read just after.
+    Fails on a non-finite loss, a head leaf that moved, clients that
+    differ after the edge step, or a personalization gain <= 0 (on the
+    fine-tune batch, as the reference evaluates it).  Then, with
+    ``profile``, one local step's profile."""
+    from repro_torch.configs.base import MLSTM, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import local_steps, build_optimizer
+    from repro_torch.launch.train import _client_round_batch, train
+    from repro_torch.models import xlstm as xm
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = get_arch("xlstm-350m")
+    model = build_model(cfg)
+    params = model.init(make_generator(kw["seed"], "cuda"))
+    head0 = params["lm_head"]["w"].clone()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    reset_counts(kernels)                  # count this path's run alone
+    res, wall = sync_time(torch, lambda: train(
+        cfg, params=params, device="cuda",
+        log=MetricLogger(name, sys.stderr), **kw))
+    del params
+    counts = read_counts(kernels)
+    kinds = cfg.layer_kinds()
+    expected = _train_forwards(kw) * sum(k == MLSTM for k in kinds)
+    finite = (all(math.isfinite(v) for v in res.losses)
+              and bool(torch.isfinite(res.global_eval).all()
+                       and torch.isfinite(res.personalized_eval).all()
+                       and torch.isfinite(res.finetune_losses).all()))
+    frozen = _heads_frozen(torch, res.params, head0)
+    synced = _replicas_equal(torch, res.params)
+    gain = res.personalization_gain
+    changes = [f"{k} {kw[k]} (the CLI's {v})" for k, v in
+               (("clients", 4), ("local_steps", 2)) if kw[k] != v]
+    if kw["seq"] != 2048:
+        changes.append(f"seq {kw['seq']} (published context 2048)")
+    changes = ", ".join(changes + ["lr 0.01 (the paper's eta; the CLI's "
+                                   "default is 0.05)"])
+    emit({"phase": name, "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "d_model": cfg.d_model, "vocab": cfg.padded_vocab,
+              "dtype": cfg.dtype, "edge_servers": 1, **kw,
+              "changes": changes},
+          "params": n_params, "train_wall_s": wall,
+          "round_wall_s": res.round_seconds,
+          "tokens_per_round": res.tokens_per_round,
+          "train_tokens_per_s": res.tokens_per_s,
+          "peak_mem_GB": res.peak_mem_GB, "losses": res.losses,
+          "finetune_losses": res.finetune_losses.cpu().tolist(),
+          "global_eval": res.global_eval.cpu().tolist(),
+          "personalized_eval": res.personalized_eval.cpu().tolist(),
+          "personalization_gain": gain, "launches": counts,
+          "mlstm_launches_expected": expected,
+          "mlstm_launches_expected_from": "(rounds x clients x kappa0 "
+          "local-step forwards + head bank + 2 evals) x 12 mLSTM layers",
+          "finite": finite, "head_frozen": frozen, "clients_equal": synced})
+    assert finite, "non-finite loss"
+    assert frozen, "a head leaf moved"
+    assert synced, "clients differ after the edge step"
+    assert gain > 0, gain
+    assert counts["mlstm_chunk"] == expected, (counts, expected)
+    assert (counts["quantize"] == counts["flash_attention"]
+            == counts["rglru_scan"] == 0), counts
+    if not profile:
+        return counts
+
+    # one local step (forward, backward, masked SGD update) of client 0
+    # on a fresh micro-batch, after the counts: host-clock forward and
+    # backward, each block kind's share of either, the device's busy
+    # share and kernel time by name
+    p1 = tree_map(lambda x: x[0], res.params)
+    tcfg = TrainConfig(learning_rate=kw["lr"], remat=False)
+    opt, mask = build_optimizer(model, tcfg, params=p1)
+    s1 = opt.init(p1)
+    batch = _client_round_batch(cfg, 1, 1, kw["micro"], kw["seq"],
+                                seed=4321, device="cuda")
+    batch = {k: v[0] for k, v in batch.items()}          # (1, micro, seq)
+    mb = {k: v[0] for k, v in batch.items()}
+    local = local_steps(model, opt, mask)
+    local(p1, s1, batch)                   # warm-up outside the timings
+    fwd, bwd = [], []
+    for _ in range(TRAIN_STEP_REPEATS):
+        leaves = tree_map(lambda x, m: x.detach().requires_grad_(m), p1,
+                          mask)
+        loss, f = sync_time(torch, lambda: model.loss(leaves, mb))
+        _, b = sync_time(torch, lambda: torch.autograd.grad(
+            loss, [t for t in tree_leaves(leaves) if t.requires_grad]))
+        fwd.append(f)
+        bwd.append(b)
+        del leaves, loss
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _, step_s = sync_time(torch, lambda: local(p1, s1, batch))
+    step_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    targets = {"mlstm": (xm, "mlstm_block_apply"),
+               "slstm": (xm, "slstm_block_apply")}
+    by_kind = seconds_by_block_kind(torch, lambda: model.loss(tree_map(
+        lambda x, m: x.detach().requires_grad_(m), p1, mask), mb),
+        TRAIN_STEP_REPEATS, targets)
+
+    def graph():
+        leaves = tree_map(lambda x, m: x.detach().requires_grad_(m), p1,
+                          mask)
+        return (model.loss(leaves, mb),
+                [t for t in tree_leaves(leaves) if t.requires_grad])
+
+    bwd_by_kind = backward_seconds_by_block_kind(
+        torch, graph, TRAIN_STEP_REPEATS, targets)
+    row, by_name = kernel_breakdown(torch, lambda: local(p1, s1, batch), 1)
+    k3_ms = sum(t for k, (t, _) in by_name.items()
+                if "mlstm_chunk_" in k) / 1e3
+    emit({"phase": "train_profile_xlstm", "what": "one local step of one "
+          f"client: {kw['micro']} x {kw['seq']} tokens, 24 layers, bf16",
+          "step_wall_s": step_s, "step_peak_GB_above_held": step_peak,
+          "forward_s": _spread(fwd),
+          "backward_s": _spread(bwd),
+          "forward_by_block_kind": by_kind,
+          "slstm_share_of_forward_by_kind": _spread(
+              [r["slstm_s"] / r["wall_s"] for r in by_kind]),
+          "backward_by_block_kind": bwd_by_kind,
+          "slstm_share_of_backward_by_kind": _spread(
+              [r["slstm_s"] / r["wall_s"] for r in bwd_by_kind]),
+          "mlstm_share_of_backward_by_kind": _spread(
+              [r["mlstm_s"] / r["wall_s"] for r in bwd_by_kind]),
+          **row, "mlstm_kernel_ms": k3_ms,
+          "host_cpus_usable": len(os.sched_getaffinity(0))})
+    return counts
+
+
+def phase_train_rglru(torch, kernels):
+    """PHSFL training at recurrentgemma-2b's published widths (d_model
+    2560, 10 query heads of 256 over one kv head, d_ff 7680, lru_width
+    2560, window 2048, vocab 256000, bf16), cut in depth to 3 layers
+    (RG-LRU, RG-LRU, local attention): train() with 2 clients, 1 round of
+    one step on 2 x 512 tokens, then one make_host_round with 2 ESs of
+    one client and global_sync=True, so the global step of Eq. 16 runs on
+    the card.  K4 and K2 once per RG-LRU and attention layer a forward;
+    finite losses; the head frozen; all clients equal after the global
+    step."""
+    from repro_torch.configs.base import (LOCAL_ATTN, RGLRU, HierarchyConfig,
+                                          TrainConfig)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import make_host_round
+    from repro_torch.launch.train import _client_round_batch, train
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch("recurrentgemma-2b"),
+                              num_layers=TRAIN_RGLRU_LAYERS)
+    kinds = cfg.layer_kinds()
+    model = build_model(cfg)
+    kw = TRAIN_RGLRU
+    params = model.init(make_generator(kw["seed"], "cuda"))
+    head0 = params["lm_head"]["w"].clone()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+
+    reset_counts(kernels)                  # count this path's run alone
+    res, wall = sync_time(torch, lambda: train(
+        cfg, params=params, device="cuda",
+        log=MetricLogger("train_rglru", sys.stderr), **kw))
+    del params
+    C = kw["clients"]
+    h2 = HierarchyConfig(num_edge_servers=C, clients_per_es=1,
+                         kappa0=kw["local_steps"], kappa1=1)
+    t2 = TrainConfig(learning_rate=kw["lr"], remat=False)
+    rnd = make_host_round(model, h2, t2, num_clients=C, global_sync=True)
+    batch = _client_round_batch(cfg, C, kw["local_steps"], kw["micro"],
+                                kw["seq"], seed=kw["seed"] + kw["rounds"],
+                                device="cuda")
+    au = torch.ones(C, device="cuda")            # one client an ES
+    ab = torch.full((C,), 1.0 / C, device="cuda")
+    (p2, _, met), global_s = sync_time(
+        torch, lambda: rnd.fn(res.params, res.opt_state, batch, au, ab))
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    forwards = _train_forwards(kw) + C * kw["local_steps"]
+    expected = {"rglru_scan": forwards * sum(k == RGLRU for k in kinds),
+                "flash_attention": forwards * sum(k == LOCAL_ATTN
+                                                  for k in kinds)}
+    losses = res.losses + [float(met["loss"])]
+    finite = (all(math.isfinite(v) for v in losses)
+              and bool(torch.isfinite(res.global_eval).all()
+                       and torch.isfinite(res.personalized_eval).all()))
+    frozen = _heads_frozen(torch, p2, head0)
+    synced = _replicas_equal(torch, p2)
+    emit({"phase": "train_rglru", "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "layer_kinds": list(kinds), "d_model": cfg.d_model,
+              "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+              "lru_width": cfg.rglru.lru_width, "vocab": cfg.padded_vocab,
+              "dtype": cfg.dtype, **kw, "global_round": {
+                  "edge_servers": C, "clients_per_es": 1,
+                  "global_sync": True}},
+          "params": n_params, "train_wall_s": wall,
+          "round_wall_s": res.round_seconds, "global_round_s": global_s,
+          "train_tokens_per_s": res.tokens_per_s, "peak_mem_GB": peak,
+          "losses": losses,
+          "personalization_gain": res.personalization_gain,
+          "launches": counts, "launches_expected": expected,
+          "finite": finite, "head_frozen": frozen, "clients_equal": synced})
+    assert finite, "non-finite loss"
+    assert frozen and synced, (frozen, synced)
+    assert all(counts[k] == n for k, n in expected.items()), (counts,
+                                                             expected)
+    assert counts["quantize"] == counts["mlstm_chunk"] == 0, counts
+    return counts
+
+
+def _npz_equal(np, a_path, b_path) -> list:
+    """Keys whose arrays differ (in dtype, shape or any bit) between two
+    checkpoint files, and keys in one only."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        bad = sorted(set(a.files) ^ set(b.files))
+        for k in set(a.files) & set(b.files):
+            x, y = a[k], b[k]
+            if (x.dtype != y.dtype or x.shape != y.shape
+                    or x.tobytes() != y.tobytes()):
+                bad.append(k)
+    return bad
+
+
+def phase_resume_train(torch, np):
+    """launch/train.py's main at the reduced config on the card, as the
+    reference's ``make resume-smoke``: a 2-round run checkpointing every
+    round, against the same run aborted after round 1 and resumed.  The
+    final state files and final-params files must be equal array for
+    array, bit for bit, and so must the final JSON."""
+    from repro_torch.launch.train import main
+    flags = ["--device", "cuda"] + RESUME_FLAGS
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(sys.stderr):
+        whole = main(flags + ["--ckpt-dir", f"{d}/whole"])
+        cut = main(flags + ["--ckpt-dir", f"{d}/cut", "--abort-after", "1"])
+        resumed = main(flags + ["--ckpt-dir", f"{d}/cut", "--resume"])
+        step = "ckpt_00000002.npz"
+        bad = {name: _npz_equal(np, f"{d}/whole/{name}", f"{d}/cut/{name}")
+               for name in (f"state/{step}", step)}
+    same_json = (whole.final_loss == resumed.final_loss
+                 and whole.personalization_gain
+                 == resumed.personalization_gain)
+    emit({"phase": "resume_train", "flags": flags,
+          "aborted_after": cut.aborted_after,
+          "resumed_from": resumed.start_round,
+          "final_loss": [whole.final_loss, resumed.final_loss],
+          "gain": [whole.personalization_gain,
+                   resumed.personalization_gain],
+          "differing_arrays": bad, "same_json": same_json})
+    assert cut.aborted_after == 1 and resumed.start_round == 1
+    assert not any(bad.values()), bad
+    assert same_json
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1685,13 +2163,27 @@ def main() -> int:
                                   arch="recurrentgemma-2b")["local"]
     phase_reference_serve_rglru(torch, np, kernels)
     rglru_launches, rg_flash_launches = phase_serve_rglru(torch, kernels)
+    train_counts = {"reference_train": phase_reference_train(torch, np,
+                                                             kernels)}
+    train_counts["train_xlstm"] = phase_train_xlstm(torch, kernels)
+    train_counts["train_xlstm_2048"] = phase_train_xlstm(
+        torch, kernels, TRAIN_XLSTM_CONTEXT, "train_xlstm_2048",
+        profile=False)
+    train_counts["train_rglru"] = phase_train_rglru(torch, kernels)
+    phase_resume_train(torch, np)
+
+    def train_launches(name):
+        """Each training phase's launches of one kernel, as it read them."""
+        return {phase: counts[name] for phase, counts in train_counts.items()}
+
     g, loc = flash_timing["global"], flash_timing["local"]
     mb = mlstm_timing["bfloat16"]
     emit({"kernels": [{
         "name": "quantize", "route": "cuda",
         "source": "src/repro_torch/hopper/quantize/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize/kernel.py:40",
-        "launches": launches, "equal": True, "max_abs_err": max_err,
+        "launches": launches, "train_launches": train_launches("quantize"),
+        "equal": True, "max_abs_err": max_err,
         "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -1699,7 +2191,9 @@ def main() -> int:
         "source": "src/repro_torch/hopper/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
-        "launches": flash_launches, "within_tolerance": True,
+        "launches": flash_launches,
+        "train_launches": train_launches("flash_attention"),
+        "within_tolerance": True,
         "tolerance": FLASH_TOL, "max_abs_err": flash_err,
         "shape": "global layer: q (6,2048,16,256), k/v (6,2048,8,256) "
                  "bf16, causal",
@@ -1722,7 +2216,9 @@ def main() -> int:
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/hopper/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",
-        "launches": mlstm_launches, "within_tolerance": True,
+        "launches": mlstm_launches,
+        "train_launches": train_launches("mlstm_chunk"),
+        "within_tolerance": True,
         "tolerance": MLSTM_TOL, "max_abs_err": mlstm_err,
         "shape": "q, k, v (6,2048,4,512) bf16, li/lf (6,2048,4) float32",
         "ms": mb["kernel_ms"], "kernel_ms": mb["kernel_ms"],
@@ -1734,7 +2230,9 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/hopper/rglru_scan/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:46",
-        "launches": rglru_launches, "within_tolerance": True,
+        "launches": rglru_launches,
+        "train_launches": train_launches("rglru_scan"),
+        "within_tolerance": True,
         "tolerance": RGLRU_TOL, "max_abs_err": rglru_err,
         "shape": "log_a, b (6,2048,2560) float32, h0 (6,2560) float32",
         "ms": rglru_timing["kernel_ms"],

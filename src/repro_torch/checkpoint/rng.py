@@ -3,8 +3,8 @@
 
 A numpy PCG64 ``Generator``'s exact stream position round-trips through a
 (6,) uint64 array, so RNG streams checkpoint like any other leaf, and a
-state written by the reference restores here.  Saving to and restoring
-from disk wait for a later slice.
+state written by the reference restores here (``checkpoint/ckpt.py``
+writes and reads such trees).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Hierarchical aggregation (paper Sec. II-B, Eqs. 4–7 and 14–16).
 
 The host half of ``repro.core.hierarchy``: bookkeeping and explicit
-weighted sums over lists of client trees (dicts of tensors).  The masked
-variants and the mesh half wait for the wireless and mesh slices.
+weighted sums over lists of client trees (dicts of tensors), plain and
+participation-masked.  The mesh half waits for the mesh slice.
 """
 
 from __future__ import annotations
@@ -44,3 +44,43 @@ def global_aggregate(edge_trees: list, alpha_b) -> object:
     w = np.asarray(alpha_b, dtype=np.float64)
     assert abs(w.sum() - 1.0) < 1e-6, "alpha_b must sum to 1"
     return tree_weighted_sum(edge_trees, [float(v) for v in w])
+
+
+# ------------------------------------------- participation-masked (host) ----
+def _masked_weighted_sum(trees: list, weights, mask, fallback):
+    """Weighted sum over the sub-list where mask > 0, weights renormalized
+    to the simplex over participants.  A full mask takes the exact
+    unmasked code path (bit-for-bit ``tree_weighted_sum(trees,
+    weights)``); an empty mask returns ``fallback`` (the previous model)
+    or raises."""
+    m = np.asarray(mask, dtype=np.float64)
+    w = np.asarray(weights, dtype=np.float64)
+    if not m.shape == w.shape == (len(trees),):
+        raise ValueError(f"want mask and weights of shape ({len(trees)},); "
+                         f"got {m.shape} and {w.shape}")
+    if (m > 0).all():
+        return tree_weighted_sum(trees, [float(v) for v in w])
+    keep = np.flatnonzero(m > 0)
+    if len(keep) == 0:
+        if fallback is None:
+            raise ValueError("no participants and no fallback model given")
+        return fallback
+    sub_w = w[keep]
+    return tree_weighted_sum([trees[i] for i in keep],
+                             [float(v) for v in sub_w / sub_w.sum()])
+
+
+def masked_edge_aggregate(client_trees: list, alpha_u, mask,
+                          fallback=None) -> object:
+    """Eqs. (14-15) over the participating clients of one ES: the
+    straggler mask zeroes dropped clients and the alpha_u weights
+    renormalize over the survivors; with no survivors the ES keeps
+    ``fallback`` (its previous edge model)."""
+    return _masked_weighted_sum(client_trees, alpha_u, mask, fallback)
+
+
+def masked_global_aggregate(edge_trees: list, alpha_b, mask,
+                            fallback=None) -> object:
+    """Eq. (16) over the ESs that had at least one participant this global
+    round; alpha_b renormalizes over them."""
+    return _masked_weighted_sum(edge_trees, alpha_b, mask, fallback)

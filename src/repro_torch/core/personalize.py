@@ -8,6 +8,9 @@ batch come from ONE trunk forward over all C x B sequences (the
 reference's ``vmap`` over clients, with the trunk shared), under
 ``torch.no_grad``; each client's K head steps then run on its slice of
 them.
+
+``extract_head`` and ``merge_head`` take a head out of a parameter tree
+and graft a (per-client) head onto the shared trunk.
 """
 
 from __future__ import annotations
@@ -15,8 +18,50 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.core.split import split_spec_for
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.registry import Model
+from repro_torch.utils.tree import map_with_path, path_leaves
+
+
+def extract_head(params, cfg) -> dict:
+    """The head subtree (paths preserved), e.g. {"lm_head": {"w": ...}}."""
+    spec = split_spec_for(cfg)
+    out: dict = {}
+    for path, leaf in path_leaves(params):
+        if spec.part_of(path) == "head":
+            cur = out
+            keys = path.split("/")
+            for k in keys[:-1]:
+                cur = cur.setdefault(k, {})
+            cur[keys[-1]] = leaf
+    return out
+
+
+def merge_head(params, head_params, cfg):
+    """Graft a (per-client) head onto shared trunk params.
+
+    ``head_params`` may be a partial tree holding only the head paths (as
+    ``extract_head`` gives it) or a full params-shaped tree."""
+    spec = split_spec_for(cfg)
+
+    def lookup(tree, path: str):
+        cur = tree
+        for k in path.split("/"):
+            if not isinstance(cur, dict) or k not in cur:
+                return None
+            cur = cur[k]
+        return cur
+
+    def pick(path, leaf):
+        if spec.part_of(path) != "head":
+            return leaf
+        h = lookup(head_params, path)
+        if h is None:
+            raise KeyError(f"head leaf {path} missing from head_params")
+        return h
+
+    return map_with_path(pick, params)
 
 
 def head_loss(head_w, cfg: ModelConfig, hidden, labels):

@@ -56,10 +56,12 @@ def mlstm_chunkwise(q, k, v, li, lf, carry=None, chunk: int = MLSTM_CHUNK):
         run_max = torch.cummax(g, dim=1).values
         M = torch.maximum(m_prev[:, None, :], run_max)     # (B,chunk,H)
         m_t = a + M
-        # intra-chunk: D[t,s] = exp(g_s - M_t) for s <= t (selected after
-        # the exp, as the reference: the masked half may overflow)
+        # intra-chunk: D[t,s] = exp(g_s - M_t) for s <= t.  The masked
+        # half (s > t) may overflow: the reference selects after the exp,
+        # and its VJP then takes 0 x inf = NaN (R4); selecting -inf before
+        # the exp gives the same D and a finite gradient
         Dlog = g[:, None, :, :] - M[:, :, None, :]         # (B,t,s,H)
-        D = torch.where(causal, torch.exp(Dlog), 0.0)
+        D = torch.exp(torch.where(causal, Dlog, float("-inf")))
         scores = torch.einsum("bthd,bshd->btsh", qb, kb) * D
         h_intra = torch.einsum("btsh,bshd->bthd", scores, vb)
         n_intra = torch.einsum("btsh,bshd->bthd", D, kb)

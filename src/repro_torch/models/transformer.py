@@ -25,6 +25,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
@@ -209,7 +210,10 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["embed"]["table"][tokens]
+    # F.embedding, not table[tokens]: the indexing's backward (index_put_
+    # with accumulate) sums repeated tokens in a thread-dependent order on
+    # the CPU, so a resumed run would not repeat the uninterrupted one
+    x = F.embedding(tokens, params["embed"]["table"])
     if cfg.embed_scale:
         # sqrt(d_model) rounded to x's dtype before the product, as the
         # reference does (62.0, not 61.97, in bfloat16 at d_model 3840)

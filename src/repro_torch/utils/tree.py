@@ -38,6 +38,31 @@ def tree_leaves_with_path(tree: PyTree, prefix: str = "") -> Iterator:
         yield prefix, tree
 
 
+def path_leaves(tree: PyTree, prefix: str = "") -> Iterator:
+    """(path, leaf) pairs with '/'-joined paths (``a/b/0/c``), as the
+    reference's ``repro.utils.tree.path_str`` renders a key path: the
+    names the split patterns match and the checkpoint keys."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from path_leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, tuple):
+        for i, t in enumerate(tree):
+            yield from path_leaves(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def map_with_path(fn: Callable, tree: PyTree, prefix: str = "") -> PyTree:
+    """``tree_map`` where ``fn`` receives ('/'-joined path, leaf)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], f"{prefix}{k}/")
+                for k in tree}
+    if isinstance(tree, tuple):
+        return tuple(map_with_path(fn, t, f"{prefix}{i}/")
+                     for i, t in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
 def tree_leaves(tree: PyTree) -> list:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
