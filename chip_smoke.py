@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's five paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's six paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -9,8 +9,11 @@ quantize-dequantize), personalized LM serving on gemma3-12b
 serving on xlstm-350m (the same entry point, kernel K3, the chunkwise
 mLSTM) and on recurrentgemma-2b (the same entry point, kernels K4, the
 RG-LRU scan, and K2), and PHSFL training of those LMs
-(``launch/train.py``: K3 on xlstm-350m, K4 and K2 on recurrentgemma-2b).
-Phases, each printing one JSON line (any mismatch
+(``launch/train.py``: K3 on xlstm-350m, K4 and K2 on recurrentgemma-2b),
+and both training paths over the wireless network (the numpy scheduler
+oracle, the float64 cohort core on the card, FedSim's and the launcher's
+network modes: K1 and K3).  Phases, each printing one JSON line (any
+mismatch
 or fault exits non-zero; no phase's failure is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
@@ -51,6 +54,27 @@ or fault exits non-zero; no phase's failure is caught):
    kernel's launch count set to 0 just before and read just after;
 9. profile: where a training step's device time goes, and the device's
    busy share;
+   check_cohort: the float64 cohort decision core on the card against the
+   port's numpy scheduler oracle, every RoundReport field and the carried
+   state bit for bit, on the CPU tests' 20 configurations x 6 rounds at
+   U = 8 and on contend_prop, topk and pipeline_contend at 10**5 clients
+   for 3 rounds; the ordered per-ES sum against np.bincount at 10**6
+   adversarial values;
+   cohort: benchmarks/cohort_bench.py's scenario at 10**6 registered
+   clients over 8 k-means ESs, cohort 512 by pareto sampling: build,
+   warm-up and 5 steady rounds (median, max, each split into stage A,
+   stage B, copies, sampling, channel draws and the rest of the host),
+   participation, peak device memory, and one round of the numpy oracle
+   at the same N, whose report must equal the core's;
+   reference_wireless: the CPU tests' four networks (binding deadline,
+   stale fold, ES outage with reassoc failover, population mode) on a
+   small FedSim, card against CPU: network rows equal, losses and
+   parameters within 1e-4;
+   fedsim_wireless: the CNN path at full width (as ``fedsim``) under
+   cohort_bench's channel, staleness 0.5 and greedy cuts over conv1 /
+   conv2 / fc1, 2 global rounds, then 100 slots sampled from 10**6
+   clients over 4 k-means ESs, one round; the deadline the median of the
+   oracle's round-0 times; K1's launches against their count;
 10. reference_serve: ``serve()`` at ``gemma3-12b.reduced(num_layers=12)``
     on the card against the same call on the CPU, same weights and seed:
     the head bank, the logits and the generated tokens;
@@ -120,8 +144,14 @@ or fault exits non-zero; no phase's failure is caught):
     2 ESs with global_sync (Eq. 16): K4 and K2 counts, peak memory;
 23. resume_train: ``launch/train.py``'s ``main`` on the card, 2 rounds
     against 1 round, abort, resume: the final state files bit-equal;
+    train_wireless: the same ``main`` with ``--channel rayleigh
+    --population 64 --cut-policy greedy --cut-candidates 1 2
+    --erasure-prob 0.3`` on the card against the CPU (network keys equal,
+    losses and state within K3's 2e-4, the scheduler's state equal), then
+    killed and resumed on the card: state files bit-equal;
 24. the kernels line (each kernel's launches on its serving or CNN path,
-    and on each training phase as that phase read them), then
+    on each training phase as that phase read them, and on the network
+    phases), then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -2118,6 +2148,511 @@ def phase_resume_train(torch, np):
     assert same_json
 
 
+# ------------------------------------------------------ the wireless slice --
+# The scheduler configurations of the CPU parity tests (tests/
+# test_population.py's 20, at U = 8 over 6 rounds); the fault configs'
+# FaultConfig as its kwargs.
+COHORT_U = 8
+_CB = dict(mean_uplink_mbps=8.0, mean_downlink_mbps=30.0, latency_s=0.01,
+           deadline_s=1.5, energy_budget_j=20.0, tx_power_w=0.7,
+           heterogeneity=0.5, seed=3)
+_TRACE = tuple(tuple(5.0 + 3 * ((i * 7 + j * 3) % 5) for j in range(8))
+               for i in range(4))
+_TRACE_DOWN = tuple(tuple(20.0 + 5 * ((i * 3 + j) % 4) for j in range(8))
+                    for i in range(4))
+_OUTAGE = tuple((0, 1) if i % 3 == 1 else (0, 0) for i in range(6))
+_PROP = dict(es_uplink_mbps=12.0, contention="proportional")
+COHORT_CONFIGS = {
+    "static": dict(model="static"), "rayleigh": dict(model="rayleigh"),
+    "trace": dict(model="trace", trace=_TRACE),
+    "trace_down": dict(model="trace", trace=_TRACE, trace_down=_TRACE_DOWN),
+    "contend_eq": dict(model="rayleigh", es_uplink_mbps=12.0),
+    "contend_prop": dict(model="rayleigh", **_PROP),
+    "contend_noreshare": dict(model="rayleigh", reshare_uplink=False,
+                              **_PROP),
+    "pipeline": dict(model="rayleigh", pipeline=True),
+    "pipeline_contend": dict(model="rayleigh", pipeline=True, **_PROP),
+    "greedy_cut": dict(model="rayleigh", cut_policy="greedy",
+                       compute_gflops=2.0, compute_heterogeneity=0.4,
+                       compute_power_w=0.3),
+    "deadline_cut": dict(model="rayleigh", cut_policy="deadline",
+                         compute_gflops=2.0, compute_power_w=0.3, **_PROP),
+    "topk": dict(model="rayleigh", selection="topk", topk=3,
+                 es_uplink_mbps=10.0, contention="proportional"),
+    "random": dict(model="rayleigh", selection="random",
+                   participation_prob=0.6),
+    "stale": dict(model="rayleigh", staleness_lambda=0.5),
+    "ideal": dict(model="ideal"),
+    "outage_reassoc": dict(model="rayleigh",
+                           faults=dict(es_outage_trace=_OUTAGE), **_PROP),
+    "outage_skip": dict(model="rayleigh", es_uplink_mbps=12.0,
+                        faults=dict(es_outage_trace=_OUTAGE,
+                                    failover="skip")),
+    "harq": dict(model="rayleigh", faults=dict(erasure_prob=0.3,
+                                               max_retries=2,
+                                               backoff_s=0.02)),
+    "crash": dict(model="rayleigh", faults=dict(crash_hazard=0.3)),
+    "harq_outage_stale": dict(model="rayleigh", staleness_lambda=0.5,
+                              es_uplink_mbps=12.0,
+                              faults=dict(erasure_prob=0.25, max_retries=2,
+                                          backoff_s=0.02,
+                                          es_outage_trace=_OUTAGE)),
+}
+COHORT_TABLE = ("greedy_cut", "deadline_cut")
+COHORT_ONE_ES = ("static", "rayleigh", "trace", "trace_down", "pipeline",
+                 "greedy_cut", "random", "stale", "ideal", "harq", "crash")
+# check_cohort at scale: the configs whose per-ES sums are not counts
+# (proportional water-filling) and the top-k selection, 10**5 clients
+COHORT_LARGE = ("contend_prop", "topk", "pipeline_contend")
+COHORT_LARGE_N, COHORT_LARGE_ROUNDS = 100_000, 3
+# cohort: benchmarks/cohort_bench.py's scenario (rayleigh, 25/100 Mbps,
+# deadline 2 s, budget 500 J, heterogeneity 0.5, 800 Mbps shared ES
+# uplinks, proportional contention) at its largest population
+COHORT_BENCH_CHANNEL = dict(model="rayleigh", mean_uplink_mbps=25.0,
+                            mean_downlink_mbps=100.0, latency_s=0.01,
+                            deadline_s=2.0, energy_budget_j=500.0,
+                            tx_power_w=0.7, heterogeneity=0.5,
+                            es_uplink_mbps=800.0, contention="proportional",
+                            seed=0)
+COHORT_N, COHORT_ES, COHORT_SIZE, COHORT_ROUNDS = 10**6, 8, 512, 5
+# reference_wireless / fedsim_wireless: the CPU parity tests' four networks
+# (tests/test_torch_fedsim_wireless.py) on phase_reference's small CNN
+_FB = dict(mean_uplink_mbps=8.0, mean_downlink_mbps=30.0, latency_s=0.01,
+           energy_budget_j=20.0, tx_power_w=0.7, heterogeneity=0.5, seed=3)
+FEDSIM_NETWORKS = {
+    "rayleigh": dict(model="rayleigh", deadline_s=0.06, **_FB),
+    "stale": dict(model="rayleigh", deadline_s=0.1, staleness_lambda=0.5,
+                  selection="random", participation_prob=0.5,
+                  **{**_FB, "seed": 0}),
+    "outage": dict(model="rayleigh", deadline_s=0.2, es_uplink_mbps=12.0,
+                   contention="proportional",
+                   faults=dict(es_outage_trace=((0, 1), (0, 0), (1, 0))),
+                   **_FB),
+    "population": dict(model="rayleigh", deadline_s=2.0,
+                       es_uplink_mbps=12.0, contention="proportional",
+                       **_FB),
+}
+FEDSIM_POPULATION = dict(num_es=2, seed=3, assignment="kmeans",
+                         data_sigma=0.5)
+# fedsim_wireless: the population the CNN trains over at full width
+FEDSIM_WIRELESS_N = 10**6
+# train_wireless: launch/train.py's flags on the reduced xlstm (float32,
+# K3's float32 route), the network of the slice's CLI example
+TRAIN_WIRELESS_FLAGS = ["--rounds", "2", "--clients", "2", "--seq", "64",
+                        "--channel", "rayleigh", "--population", "64",
+                        "--cut-policy", "greedy", "--cut-candidates", "1",
+                        "2", "--erasure-prob", "0.3", "--ckpt-every", "1"]
+
+
+def _wireless_config(kw):
+    from repro_torch.configs import FaultConfig, WirelessConfig
+    kw = dict(kw)
+    if "faults" in kw:
+        kw["faults"] = FaultConfig(**kw["faults"])
+    return WirelessConfig(**kw)
+
+
+def _cohort_pair(name, n, device):
+    """The port's numpy oracle and its cohort core of a COHORT_CONFIGS
+    entry over ``n`` clients (the tests' layout: one ES, or two halves;
+    a shared ES uplink scaled by n / COHORT_U)."""
+    import numpy as np
+    from repro_torch.configs.phsfl_cnn import CONFIG as CNN
+    from repro_torch.core.comm import comm_for_cnn, comm_table_for_cnn
+    from repro_torch.wireless import make_scheduler
+    from repro_torch.wireless.population import CohortScheduler
+    kw = dict(COHORT_CONFIGS[name])
+    if kw["model"] != "ideal":
+        kw = {**_CB, **kw}
+    if "es_uplink_mbps" in kw:
+        # the same pipe per client as at U = 8, so shares stay comparable
+        # to the private rates and clients still finish
+        kw["es_uplink_mbps"] *= n / COHORT_U
+    wcfg = _wireless_config(kw)
+    es = None if name in COHORT_ONE_ES else np.arange(n) // (n // 2)
+    ckw = dict(dataset_size=400, batch_size=16)
+    if name in COHORT_TABLE:
+        table = comm_table_for_cnn(CNN, **ckw)
+        mk = lambda **e: make_scheduler(wcfg, n, kappa0=2, comm_table=table,
+                                        es_assign=es, **e)
+    else:
+        comm = comm_for_cnn(CNN, **ckw)
+        mk = lambda **e: make_scheduler(wcfg, n, comm, 2, es_assign=es, **e)
+    return mk(), mk(cls=CohortScheduler, core_device=device)
+
+
+def _report_diffs(np, a, b) -> list:
+    """Fields in which two RoundReports differ (the tests' bar)."""
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            same = ((x is None) == (y is None)
+                    and np.array_equal(np.asarray(x), np.asarray(y)))
+        else:
+            same = x == y
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def phase_check_cohort(torch, np):
+    """The float64 decision core on the card against the port's numpy
+    oracle (which the CPU tests hold to the reference's), bit for bit:
+    every RoundReport field and the carried state, on the 20 configs x 6
+    rounds at U = 8 and on COHORT_LARGE at 10**5 clients for 3 rounds;
+    and the per-group sum in np.bincount's order at 10**6 adversarial
+    values (the water-filling totals a client on a boundary depends on)."""
+    from repro_torch.wireless.scheduler_core import segment_sum_np_order
+    t0 = time.perf_counter()
+    bad = []
+    rounds = 0
+    cases = [(name, COHORT_U, 6) for name in COHORT_CONFIGS] + [
+        (name, COHORT_LARGE_N, COHORT_LARGE_ROUNDS) for name in COHORT_LARGE]
+    stats = {}
+    for name, n, n_rounds in cases:
+        oracle, core = _cohort_pair(name, n, "cuda")
+        for r in range(n_rounds):
+            want, got = oracle.step(r), core.step(r)
+            rounds += 1
+            diffs = _report_diffs(np, got, want)
+            if diffs:
+                bad.append({"config": name, "N": n, "round": r,
+                            "fields": diffs})
+            if n > COHORT_U:
+                stats.setdefault(name, []).append(
+                    {"scheduled": int(want.scheduled.sum()),
+                     "participants": want.num_participants})
+        for attr in ("energy_left", "_stale_pending", "_stale_age"):
+            if not np.array_equal(getattr(core, attr), getattr(oracle, attr)):
+                bad.append({"config": name, "N": n, "state": attr})
+    rng = np.random.default_rng(0)
+    n, groups = 10**6, 8
+    x = np.where(rng.random(n) < 0.5, rng.lognormal(0.0, 8.0, n),
+                 rng.random(n) * 1e-9)
+    g = rng.integers(0, groups, n)
+    want = np.bincount(g, weights=x, minlength=groups)
+    got = segment_sum_np_order(torch.from_numpy(x).cuda(),
+                               torch.from_numpy(g).cuda(), groups).cpu()
+    pairwise_differs = not np.array_equal(
+        want, [np.sum(x[g == k]) for k in range(groups)])
+    sums_equal = bool(np.array_equal(got.numpy(), want))
+    emit({"phase": "check_cohort", "device": "cuda", "rounds": rounds,
+          "configs_u8": len(COHORT_CONFIGS), "large": list(COHORT_LARGE),
+          "large_N": COHORT_LARGE_N, "large_rounds": stats,
+          "mismatches": bad, "bit_identical": not bad,
+          "segment_sum_1e6_equal": sums_equal,
+          "segment_sum_order_matters": pairwise_differs,
+          "seconds": time.perf_counter() - t0})
+    assert not bad, bad
+    assert sums_equal and pairwise_differs
+
+
+@contextlib.contextmanager
+def _timed(torch, owner, attr, bucket, key):
+    """Accumulate the synchronised wall seconds of ``owner.attr`` calls."""
+    orig = getattr(owner, attr)
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        bucket[key] += time.perf_counter() - t
+        return out
+
+    setattr(owner, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def phase_cohort(torch, np):
+    """The population path at cohort_bench's scenario and largest size:
+    10**6 registered clients over 8 k-means ESs, a cohort of 512 a round
+    by pareto sampling.  Build, warm-up round, then COHORT_ROUNDS steady
+    rounds, each split into stage A, stage B (device work, synchronised),
+    host-to-device and device-to-host copies, the population's sampling
+    and the channel's draws, and the rest on the host (the selection
+    gate, the report and its numpy totals); peak device memory; then one
+    round of the port's numpy oracle at the same N on this host, under
+    the core's first cohort, whose report must equal the core's."""
+    from repro_torch.configs import CNNConfig
+    from repro_torch.core.comm import comm_for_cnn
+    from repro_torch.wireless import make_scheduler
+    from repro_torch.wireless import scheduler_core as core
+    from repro_torch.wireless.channel import ChannelModel
+    from repro_torch.wireless.population import (CohortScheduler,
+                                                 Population,
+                                                 make_cohort_scheduler)
+    comm = comm_for_cnn(CNNConfig(), dataset_size=400, batch_size=16,
+                        batches_per_epoch=1)
+    wcfg = _wireless_config(COHORT_BENCH_CHANNEL)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pop = Population(COHORT_N, num_es=COHORT_ES, seed=0,
+                     assignment="kmeans")
+    sched = make_cohort_scheduler(wcfg, COHORT_N, comm, 1, population=pop,
+                                  cohort_size=COHORT_SIZE, sampling="pareto",
+                                  core_device="cuda")
+    build_s = time.perf_counter() - t0
+    rep0, warm_s = sync_time(torch, lambda: sched.step(0))
+    first_cohort = sched.last_cohort.copy()
+    parts, walls, splits = [rep0.num_participants], [], []
+    for r in range(1, COHORT_ROUNDS + 1):
+        b = dict.fromkeys(("stage_a", "stage_b", "h2d", "d2h", "sampling",
+                           "channel_draws"), 0.0)
+        with _timed(torch, core, "cohort_stage_a", b, "stage_a"), \
+                _timed(torch, core, "cohort_stage_b", b, "stage_b"), \
+                _timed(torch, CohortScheduler, "_f64", b, "h2d"), \
+                _timed(torch, torch.Tensor, "cpu", b, "d2h"), \
+                _timed(torch, Population, "sample_cohort", b, "sampling"), \
+                _timed(torch, ChannelModel, "fades", b, "channel_draws"):
+            rep, dt = sync_time(torch, lambda: sched.step(r))
+        b["host_rest"] = dt - sum(b.values())
+        walls.append(dt)
+        splits.append(b)
+        parts.append(rep.num_participants)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    oracle = make_scheduler(wcfg, COHORT_N, comm, 1,
+                            es_assign=pop.es_assign)
+    oracle.cohort_mask = pop.cohort_mask(first_cohort)
+    orep, oracle_s = sync_time(torch, lambda: oracle.step(0))
+    diffs = _report_diffs(np, rep0, orep)
+    emit({"phase": "cohort", "N": COHORT_N, "num_es": COHORT_ES,
+          "assignment": "kmeans", "cohort_size": COHORT_SIZE,
+          "sampling": "pareto", "channel": COHORT_BENCH_CHANNEL,
+          "build_s": build_s, "warmup_s": warm_s,
+          "wall_s_per_round_median": float(np.median(walls)),
+          "wall_s_per_round_max": float(np.max(walls)),
+          "wall_s_per_round": walls, "split_s": splits,
+          "participation": float(np.mean(parts)) / COHORT_SIZE,
+          "participants": parts, "peak_device_GB": peak / 1e9,
+          "oracle_round_s": oracle_s,
+          "oracle_equal_on_round_0": not diffs, "oracle_diffs": diffs})
+    assert not diffs, diffs
+    assert all(0 < p <= COHORT_SIZE for p in parts), parts
+
+
+def _small_fedsim(name, device):
+    FedSim, CNNConfig, H, T, make_data, _ = _fedsim_parts()
+    from repro_torch.wireless.population import Population
+    pop = (Population(64, **FEDSIM_POPULATION) if name == "population"
+           else None)
+    return FedSim(CNNConfig(image_size=16, conv1_filters=8,
+                            conv2_filters=16, fc_hidden=32),
+                  make_data(4, 0.5, image_size=16, train_per_class=30,
+                            test_per_class=10, seed=0),
+                  H(num_edge_servers=2, clients_per_es=2, kappa0=2,
+                    kappa1=2),
+                  T(learning_rate=0.05, batch_size=8, finetune_steps=3,
+                    finetune_lr=0.05), batches_per_epoch=2, seed=0,
+                  wireless=_wireless_config(FEDSIM_NETWORKS[name]),
+                  population=pop, sampling="rate", device=device)
+
+
+def phase_reference_wireless(np):
+    """FedSim's network modes, small, on the card against the CPU: the
+    four networks of the CPU parity tests (a binding deadline, the stale
+    fold, an ES outage with reassoc failover, population mode with the
+    cohort core on each device).  Network rows equal; losses and the
+    global parameters within phase_reference's 1e-4 (no codec)."""
+    out = {}
+    for name in FEDSIM_NETWORKS:
+        runs = [_small_fedsim(name, d).run(rounds=2, log_every=1)
+                for d in ("cuda", "cpu")]
+        card, cpu = runs
+        rows_equal = card.network == cpu.network
+        a = [r[k] for r in card.history for k in ("train_loss",
+                                                  "test_loss")]
+        b = [r[k] for r in cpu.history for k in ("train_loss",
+                                                 "test_loss")]
+        diff = float(np.abs(np.subtract(a, b)).max())
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+        for k in card.global_params:
+            for n in card.global_params[k]:
+                x = card.global_params[k][n].cpu().numpy()
+                y = cpu.global_params[k][n].numpy()
+                np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4,
+                                           err_msg=f"{name} {k}/{n}")
+                diff = max(diff, float(np.abs(x - y).max()))
+        out[name] = {"rows_equal": rows_equal, "max_abs_diff": diff,
+                     "participants": [r["participants"]
+                                      for r in card.network]}
+        assert rows_equal, (name, card.network, cpu.network)
+    emit({"phase": "reference_wireless", "cuda_vs_cpu": out, "tol": 1e-4})
+
+
+def phase_fedsim_wireless(torch, np, kernels, data):
+    """The CNN path at the paper's full width under cohort_bench's channel
+    (int8 with stochastic rounding on all links, as ``fedsim``): 4 ESs x
+    25 clients with staleness lambda 0.5 and the greedy cut policy over
+    conv1 / conv2 / fc1, 2 global rounds; then 100 training slots sampled
+    from 10**6 registered clients over 4 k-means ESs (lambda 0: the
+    reference rejects staleness in population mode), one global round.
+    The deadline: the median completion time of the clients the oracle
+    schedules in round 0 of the first run with no deadline (on the CPU, at
+    this run's byte and compute accounting), so about half finish.  K1's
+    launches are counted over both runs against the count computed for
+    them (the network only masks aggregation: every client trains)."""
+    FedSim, CNNConfig, H, T, _, link_codecs = _fedsim_parts()
+    from repro_torch.models import cnn
+    from repro_torch.wireless.population import Population
+    cfg = CNNConfig()
+    h = H(num_edge_servers=4, clients_per_es=25, kappa0=5, kappa1=3)
+    t = T(batch_size=32, finetune_steps=10)
+    bpe = 5
+    codecs = link_codecs("int8")
+    chan = dict(COHORT_BENCH_CHANNEL, cut_policy="greedy",
+                cut_candidates=cnn.CUT_CANDIDATES)
+    free = _wireless_config(dict(chan, deadline_s=float("inf"),
+                                 staleness_lambda=0.5))
+    probe = FedSim(cfg, data, h, t, batches_per_epoch=bpe, seed=0,
+                   codecs=codecs, wireless=free, device="cpu")
+    rep = probe.scheduler.step(0)
+    deadline = float(np.median(rep.times_s[rep.scheduled]))
+    del probe
+    runs = {}
+    reset_counts(kernels)
+    for name, rounds, network, population in (
+            ("stale_greedy", 2, dict(chan, deadline_s=deadline,
+                                     staleness_lambda=0.5), False),
+            ("population", 1, dict(chan, deadline_s=deadline), True)):
+        t0 = time.perf_counter()
+        pop = (Population(FEDSIM_WIRELESS_N, num_es=h.num_edge_servers,
+                          seed=0, assignment="kmeans")
+               if population else None)
+        sim = FedSim(cfg, data, h, t, batches_per_epoch=bpe, seed=0,
+                     codecs=codecs, wireless=_wireless_config(network),
+                     population=pop, sampling="pareto")
+        build_s = time.perf_counter() - t0
+        per_round, rows = [], []
+        samples = h.num_clients * t.batch_size * h.kappa0 * h.kappa1 * bpe
+        for r in range(1, rounds + 1):
+            res, dt = sync_time(torch, lambda: sim.run(rounds=r,
+                                                       log_every=1))
+            rows += res.network
+            per_round.append({"round": r, "wall_s": dt,
+                              "samples_per_s": samples / dt,
+                              **res.history[-1]})
+        runs[name] = {"build_s": build_s, "rounds": per_round,
+                      "network": rows, "sim_time_s": res.total_sim_time_s}
+        finite = all(math.isfinite(r[k]) for r in per_round
+                     for k in ("train_loss", "test_loss", "test_acc"))
+        assert finite, (name, per_round)
+    launches = read_counts(kernels)
+    n_offload = sum(len(sim._stacked[k]) for k in cnn.client_keys_for(
+        sim.cut))
+    steps = h.kappa0 * h.kappa1 * bpe
+    expected = 3 * (2 * steps + h.kappa1 * n_offload)     # 2 + 1 rounds
+    net = [r for v in runs.values() for r in v["network"]]
+    partial = any(0 < r["participants"] < r["scheduled"] for r in net)
+    emit({"phase": "fedsim_wireless", "config": {
+              "model": "CNNConfig()", "U": h.num_clients,
+              "B": h.num_edge_servers, "kappa0": h.kappa0,
+              "kappa1": h.kappa1, "batches_per_epoch": bpe,
+              "batch": t.batch_size, "codecs": "int8 stochastic, all links",
+              "channel": chan, "deadline_s": deadline,
+              "deadline_rule": "median round-0 time of the oracle's "
+                               "scheduled clients, no deadline",
+              "population": FEDSIM_WIRELESS_N},
+          "runs": runs, "launches": launches,
+          "quantize_launches_expected": expected,
+          "partial_participation": partial})
+    assert launches["quantize"] == expected, (launches, expected)
+    assert (launches["flash_attention"] == launches["mlstm_chunk"]
+            == launches["rglru_scan"] == 0), launches
+    assert partial, net
+    return launches
+
+
+def phase_train_wireless(torch, np, kernels):
+    """launch/train.py in its network mode on the reduced xlstm (float32:
+    K3's float32 route), population 64, greedy cuts over client depths 1
+    and 2, erasures with HARQ.  The scheduler ``main`` builds from these
+    flags (``scheduler_from_args``), on the card against the CPU, under
+    ``train()`` from the same parameters (``main`` draws them on its
+    device's generator): the network rows and the scheduler's state
+    equal, losses, parameters and the head bank within TRAIN_TOL.  Then
+    ``main`` itself on the card, killed after round 1 and resumed: the
+    state files bit-equal to the uninterrupted run's, the scheduler's
+    streams included."""
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import (main, parse_args,
+                                          scheduler_from_args, train)
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import path_leaves, tree_map
+    args = parse_args(TRAIN_WIRELESS_FLAGS)
+    cfg = get_arch(args.arch).reduced()
+    params = build_model(cfg).init(make_generator(args.seed, "cpu"))
+    kw = dict(rounds=args.rounds, clients=args.clients,
+              local_steps=args.local_steps, micro=args.micro, seq=args.seq,
+              lr=args.lr, finetune_steps=args.finetune_steps,
+              seed=args.seed)
+    log = MetricLogger("train_wireless", sys.stderr)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        sched = scheduler_from_args(cfg, args, device)
+        if device == "cuda":
+            reset_counts(kernels)
+        res = train(cfg, params=tree_map(lambda t: t.to(device), params),
+                    device=device, log=log, scheduler=sched, **kw)
+        if device == "cuda":
+            launches = read_counts(kernels)
+        runs[device] = (res, sched.state_dict())
+    (card, card_state), (cpu, cpu_state) = runs["cuda"], runs["cpu"]
+    sched_bad = [k for k in card_state
+                 if np.asarray(card_state[k]).tobytes()
+                 != np.asarray(cpu_state[k]).tobytes()]
+    np.testing.assert_allclose(card.losses, cpu.losses, **TRAIN_TOL)
+    diff = float(np.abs(np.subtract(card.losses, cpu.losses)).max())
+    cpu_leaves = dict(path_leaves(cpu.params))
+    for path, x in path_leaves(card.params):
+        x, y = x.cpu().numpy(), cpu_leaves[path].numpy()
+        np.testing.assert_allclose(x, y, **TRAIN_TOL, err_msg=path)
+        diff = max(diff, float(np.abs(x - y).max()))
+    x, y = card.head_bank.cpu().numpy(), cpu.head_bank.numpy()
+    np.testing.assert_allclose(x, y, **TRAIN_TOL, err_msg="head_bank")
+    n_mlstm = sum(k == MLSTM for k in cfg.layer_kinds())
+    expected = _train_forwards(kw) * n_mlstm
+    step = "ckpt_00000002.npz"
+    flags = ["--device", "cuda", *TRAIN_WIRELESS_FLAGS]
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(sys.stderr):
+        whole = main(flags + ["--ckpt-dir", f"{d}/whole"])
+        cut = main(flags + ["--ckpt-dir", f"{d}/cut", "--abort-after", "1"])
+        resumed = main(flags + ["--ckpt-dir", f"{d}/cut", "--resume"])
+        bad = {name: _npz_equal(np, f"{d}/whole/{name}", f"{d}/cut/{name}")
+               for name in (f"state/{step}", step)}
+        with np.load(f"{d}/whole/state/{step}") as z:
+            sched_keys = sorted(k for k in z.files
+                                if k.startswith("scheduler/"))
+    emit({"phase": "train_wireless", "flags": TRAIN_WIRELESS_FLAGS,
+          "network_card": card.network,
+          "network_equal": card.network == cpu.network,
+          "losses_card": card.losses, "losses_cpu": cpu.losses,
+          "cuda_vs_cpu_max_abs_diff": diff, "tol": TRAIN_TOL,
+          "scheduler_state_differs": sched_bad, "launches": launches,
+          "mlstm_launches_expected": expected,
+          "resumed_from": resumed.start_round,
+          "resume_network_equal": resumed.network == whole.network[1:],
+          "state_scheduler_keys": sched_keys,
+          "differing_arrays_after_resume": bad})
+    assert card.network == cpu.network, (card.network, cpu.network)
+    assert not sched_bad, sched_bad
+    assert cut.aborted_after == 1 and resumed.start_round == 1
+    assert resumed.network == whole.network[1:]
+    assert not any(bad.values()), bad
+    assert "scheduler/fault_rng" in sched_keys, sched_keys
+    assert launches["mlstm_chunk"] == expected, (launches, expected)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2149,7 +2684,14 @@ def main() -> int:
     phase_reference(np)
     launches, sim = phase_fedsim(torch, np, kernels)
     phase_profile(torch, sim)
+    data = sim.data
     del sim
+    phase_check_cohort(torch, np)
+    phase_cohort(torch, np)
+    phase_reference_wireless(np)
+    wireless_counts = {"fedsim_wireless": phase_fedsim_wireless(
+        torch, np, kernels, data)}
+    del data
     phase_reference_serve(np)
     flash_launches = phase_serve(torch, kernels)
     mlstm_err = phase_check_mlstm(torch, ml_ops, ml_ref)
@@ -2171,10 +2713,17 @@ def main() -> int:
         profile=False)
     train_counts["train_rglru"] = phase_train_rglru(torch, kernels)
     phase_resume_train(torch, np)
+    wireless_counts["train_wireless"] = phase_train_wireless(torch, np,
+                                                             kernels)
 
     def train_launches(name):
         """Each training phase's launches of one kernel, as it read them."""
         return {phase: counts[name] for phase, counts in train_counts.items()}
+
+    def wireless_launches(name):
+        """Each network-mode phase's launches of one kernel."""
+        return {phase: counts[name]
+                for phase, counts in wireless_counts.items()}
 
     g, loc = flash_timing["global"], flash_timing["local"]
     mb = mlstm_timing["bfloat16"]
@@ -2183,6 +2732,7 @@ def main() -> int:
         "source": "src/repro_torch/hopper/quantize/csrc/quantize.cu",
         "replaces": "src/repro/kernels/quantize/kernel.py:40",
         "launches": launches, "train_launches": train_launches("quantize"),
+        "wireless_launches": wireless_launches("quantize"),
         "equal": True, "max_abs_err": max_err,
         "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
@@ -2193,6 +2743,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
         "launches": flash_launches,
         "train_launches": train_launches("flash_attention"),
+        "wireless_launches": wireless_launches("flash_attention"),
         "within_tolerance": True,
         "tolerance": FLASH_TOL, "max_abs_err": flash_err,
         "shape": "global layer: q (6,2048,16,256), k/v (6,2048,8,256) "
@@ -2218,6 +2769,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",
         "launches": mlstm_launches,
         "train_launches": train_launches("mlstm_chunk"),
+        "wireless_launches": wireless_launches("mlstm_chunk"),
         "within_tolerance": True,
         "tolerance": MLSTM_TOL, "max_abs_err": mlstm_err,
         "shape": "q, k, v (6,2048,4,512) bf16, li/lf (6,2048,4) float32",
@@ -2232,6 +2784,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:46",
         "launches": rglru_launches,
         "train_launches": train_launches("rglru_scan"),
+        "wireless_launches": wireless_launches("rglru_scan"),
         "within_tolerance": True,
         "tolerance": RGLRU_TOL, "max_abs_err": rglru_err,
         "shape": "log_a, b (6,2048,2560) float32, h0 (6,2560) float32",

@@ -1,6 +1,8 @@
-from repro_torch.configs.base import HierarchyConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (FaultConfig, HierarchyConfig,
+                                      ModelConfig, TrainConfig,
+                                      WirelessConfig)
 from repro_torch.configs.phsfl_cnn import CNNConfig
 from repro_torch.configs.registry import get_arch
 
-__all__ = ["CNNConfig", "HierarchyConfig", "ModelConfig", "TrainConfig",
-           "get_arch"]
+__all__ = ["CNNConfig", "FaultConfig", "HierarchyConfig", "ModelConfig",
+           "TrainConfig", "WirelessConfig", "get_arch"]

@@ -1,8 +1,9 @@
-"""Config dataclasses: the model zoo's ``ModelConfig`` and the PHSFL
-hierarchy and training configs.
+"""Config dataclasses: the model zoo's ``ModelConfig``, the PHSFL
+hierarchy and training configs, and the wireless scenario.
 
 Copies of ``ModelConfig`` (with its block kinds and sub-configs),
-``HierarchyConfig`` and ``TrainConfig`` from ``repro.configs.base`` (the
+``HierarchyConfig``, ``TrainConfig``, ``FaultConfig`` and
+``WirelessConfig`` from ``repro.configs.base`` (the
 port imports nothing of the reference package).  Fields the port does not
 use yet (the sub-configs of block kinds it cannot run, the datacenter-mode
 knobs) stay, so one config means the same run on both sides.
@@ -236,3 +237,117 @@ class TrainConfig:
     remat_policy: str = "full"       # full | dots (selective, §Perf knob)
     shared_server: bool = False      # beyond-paper SFL-V2-style body sharing
     agg_dtype: str = "float32"       # aggregation psum dtype (perf knob)
+
+
+# --------------------------------------------------------------------------
+# Wireless network scenario (channel + participation; see repro_torch.wireless)
+# --------------------------------------------------------------------------
+@dataclass(frozen=True)
+class FaultConfig:
+    """Fault-injection knobs (``repro_torch.wireless.faults``).
+
+    The DEFAULTS encode ZERO faults: ``erasure_prob=0``, ``crash_hazard=0``
+    and an empty ``es_outage_trace`` leave the scheduler on its exact
+    fault-free code path (the golden regressions pin this bit-for-bit);
+    ``max_retries``/``backoff_s``/``failover`` are inert until one of the
+    hazards is switched on.  See ``repro_torch/wireless/__init__.py`` for the
+    full semantics of each knob.
+    """
+    erasure_prob: float = 0.0        # per-attempt payload erasure probability
+    max_retries: int = 2             # HARQ retransmissions per payload (the
+    #                                  payload is sent at most 1 + max_retries
+    #                                  times); inert while erasure_prob == 0
+    backoff_s: float = 0.0           # radio idle gap before each retransmit
+    es_outage_trace: tuple[tuple[int, ...], ...] = ()  # round-major rows of
+    #                                  per-ES down flags (cycled over rounds,
+    #                                  resized over ESs); () -> no outages
+    crash_hazard: float = 0.0        # per-round probability a scheduled
+    #                                  client dies mid-round
+    failover: str = "reassoc"        # outage policy: "reassoc" moves a dead
+    #                                  ES's clients to the nearest live ES,
+    #                                  "skip" sits them out for the round
+
+    @property
+    def active(self) -> bool:
+        """True when any hazard is enabled (the scheduler builds a
+        FaultInjector); False keeps the fault-free path untouched."""
+        return (self.erasure_prob > 0.0 or self.crash_hazard > 0.0
+                or len(self.es_outage_trace) > 0)
+
+
+@dataclass(frozen=True)
+class WirelessConfig:
+    """Per-client channel + participation knobs for the wireless simulator.
+
+    See ``repro_torch/wireless/__init__.py`` for the full knob documentation.
+    """
+    model: str = "ideal"             # ideal | static | rayleigh | trace
+    mean_uplink_mbps: float = 10.0   # mean per-client uplink rate
+    mean_downlink_mbps: float = 40.0  # mean per-client downlink rate
+    latency_s: float = 0.02          # per-message propagation/queueing latency
+    heterogeneity: float = 0.0       # lognormal sigma of a FIXED per-client
+    #                                  rate scale (0 -> homogeneous clients)
+    trace: tuple[tuple[float, ...], ...] = ()  # (round, client) uplink Mbps
+    trace_down: tuple[tuple[float, ...], ...] = ()  # (round, client) downlink
+    #                                  Mbps (same round-major/cycling rules as
+    #                                  trace); () -> downlink is the uplink
+    #                                  trace rescaled by the configured
+    #                                  downlink/uplink mean ratio (fallback)
+    # ---- per-ES shared uplink (contention) ----
+    es_uplink_mbps: float = float("inf")  # shared ES uplink capacity, split
+    #                                  among that round's scheduled clients
+    #                                  (inf -> private uplinks)
+    contention: str = "equal"        # sharing rule: "equal" splits the pipe
+    #                                  evenly; "proportional" weights shares
+    #                                  by each client's private rate
+    reshare_uplink: bool = True      # after unaffordable clients withdraw,
+    #                                  re-run contention so survivors absorb
+    #                                  the freed capacity (False reproduces
+    #                                  the conservative single pass)
+    # ---- adaptive cut-layer selection (repro_torch.wireless.cutter) ----
+    cut_policy: str = "fixed"        # fixed | greedy | deadline
+    cut_candidates: tuple = ()       # candidate cuts, shallow -> deep: CNN
+    #                                  cut names or LM client depths; () ->
+    #                                  the model's single default cut
+    # ---- pipelined streaming (repro_torch.wireless.timeline) ----
+    pipeline: bool = False           # overlap client compute with uplink
+    #                                  streaming at minibatch granularity:
+    #                                  each minibatch's activations transmit
+    #                                  as soon as its compute finishes, so
+    #                                  round time ~ max(compute, tx) + one
+    #                                  bubble instead of compute + tx.  False
+    #                                  (default) is the serial Eq.-17 model,
+    #                                  bit-for-bit
+    # ---- staleness-weighted async edge aggregation ----
+    staleness_lambda: float = 0.0    # lambda in [0, 1]: a deadline-cut
+    #                                  straggler's partial update is BANKED
+    #                                  and folded into the edge round where
+    #                                  its remaining bits finally land, with
+    #                                  weight alpha_u * lambda**staleness
+    #                                  (staleness = edge rounds late).  0
+    #                                  (default) reproduces today's hard
+    #                                  dropout bit-for-bit
+    # ---- participation policy (scheduler) ----
+    deadline_s: float = float("inf")  # edge-round deadline; stragglers drop
+    selection: str = "deadline"      # deadline | topk | random
+    topk: int = 0                    # keep the k fastest (0 -> no cap)
+    participation_prob: float = 1.0  # Bernoulli thinning (selection="random")
+    # ---- energy ----
+    energy_budget_j: float = float("inf")  # lifetime per-client budget
+    tx_power_w: float = 0.5          # uplink transmit power
+    # ---- device (compute) model (repro_torch.wireless.device) ----
+    compute_gflops: float = float("inf")  # per-client compute rate (GFLOP/s);
+    #                                  inf (default) = free compute, i.e. the
+    #                                  bits-only simulator exactly
+    compute_heterogeneity: float = 0.0  # lognormal sigma of a FIXED per-client
+    #                                  compute scale (0 -> identical devices)
+    compute_power_w: float = 0.0     # power drawn while computing (J/s);
+    #                                  joins tx energy in the budget gate
+    codec_cycles_per_element: float = 0.0  # FLOPs a client spends per element
+    #                                  crossing a LOSSY codec (encode up,
+    #                                  decode down); 0 = codecs compute-free
+    # ---- fault injection + recovery (repro_torch.wireless.faults) ----
+    faults: FaultConfig = FaultConfig()  # erasures/HARQ, ES outages, crashes;
+    #                                  the all-defaults instance is the exact
+    #                                  fault-free scheduler, bit-for-bit
+    seed: int = 0

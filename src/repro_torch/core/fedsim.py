@@ -19,10 +19,17 @@ minibatch stream is the reference's draw for draw (numpy, seeded), and
 the dataset stays resident on the device, so a step copies only the
 drawn indices to it.
 
-The wireless scheduler, population mode and staleness-weighted
-aggregation are the port's wireless slice (ROADMAP.md) and raise here;
-saving and restoring on disk wait too (``state_dict``/``load_state_dict``
-work in memory).
+Under a non-ideal ``wireless=`` network the reference's network modes run
+as they do there: the numpy scheduler (``repro_torch.wireless``) decides
+each edge round's participants, the masked edge aggregation renormalizes
+over them (an ES with none keeps its model), an ES outage with
+``reassoc`` failover aggregates by the effective ES, a straggler's banked
+update folds in late with weight alpha_u * lambda**staleness, and the
+global step averages only the ESs that took part.  Population mode
+samples each round's cohort of training slots from a registered
+``Population`` through the ``CohortScheduler``, whose decision core runs
+on the simulator's device.  ``save``/``restore`` checkpoint the whole
+state, the scheduler's included, through ``checkpoint/ckpt.py``.
 """
 
 from __future__ import annotations
@@ -33,8 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.rng import restore_rng_state, rng_state_array
-from repro_torch.configs.base import HierarchyConfig, TrainConfig
+from repro_torch.configs.base import (HierarchyConfig, TrainConfig,
+                                      WirelessConfig)
 from repro_torch.configs.phsfl_cnn import CNNConfig
+from repro_torch.core.hierarchy import es_assignment
 from repro_torch.data.synthetic import FederatedImageData
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn
@@ -42,6 +51,7 @@ from repro_torch.utils.prng import (draw_seed, fold_in, fold_in_str,
                                     make_generator)
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
+from repro_torch.wireless.scheduler import check_telemetry_off
 
 
 def _unflatten(tree, leaves):
@@ -147,32 +157,48 @@ class FedSim:
     def __init__(self, cfg: CNNConfig, data: FederatedImageData,
                  hcfg: HierarchyConfig, tcfg: TrainConfig, *,
                  batches_per_epoch: int = 5, seed: int = 0,
-                 wireless=None, cut: str | None = None, codecs=None,
-                 population=None, device=None):
-        if population is not None:
-            raise NotImplementedError(
-                "population mode is part of the port's wireless slice "
-                "(ROADMAP.md)")
-        if wireless is not None and (
-                wireless.model != "ideal"
-                or getattr(wireless, "staleness_lambda", 0.0) > 0.0):
-            raise NotImplementedError(
-                "non-ideal wireless networks and staleness-weighted "
-                "aggregation are the port's wireless slice (ROADMAP.md); "
-                "this slice runs the ideal network")
-        if data.num_clients != hcfg.num_clients:
-            raise ValueError(f"data has {data.num_clients} clients, the "
-                             f"hierarchy {hcfg.num_clients}")
+                 wireless: WirelessConfig | None = None,
+                 cut: str | None = None, codecs=None, telemetry=None,
+                 population=None, sampling: str = "uniform", device=None):
+        # population mode (repro_torch.wireless.population): hcfg.num_clients
+        # becomes the COHORT size (training slots); each edge round the
+        # scheduler samples that many registered clients, ES-balanced so
+        # slot i's home ES stays i // Ub, and slot i trains on data shard
+        # cohort[i] % data.num_clients.  Without a population the classic
+        # invariant holds: one shard per permanent client.
+        self.population = population
+        self.sampling = sampling
+        self._slot_shard = None          # (U,) per-round slot -> data shard
+        if population is None:
+            if data.num_clients != hcfg.num_clients:
+                raise ValueError(f"data has {data.num_clients} clients, the "
+                                 f"hierarchy {hcfg.num_clients}")
+        else:
+            if wireless is None or wireless.model == "ideal":
+                raise ValueError("population mode needs a wireless config "
+                                 "(the cohort sampler lives on the "
+                                 "scheduler)")
+            if population.num_es != hcfg.num_edge_servers:
+                raise ValueError(
+                    f"population has {population.num_es} edge servers but "
+                    f"the hierarchy has {hcfg.num_edge_servers}")
+            if wireless.staleness_lambda > 0.0:
+                raise ValueError(
+                    "staleness_lambda > 0 is incompatible with population "
+                    "mode: the bank keys snapshots by client identity, but "
+                    "training slots remap to different clients every round")
         self.device = resolve_device(device)
         self.cfg, self.data, self.h, self.t = cfg, data, hcfg, tcfg
         self.batches_per_epoch = batches_per_epoch
-        # the TRAINING cut: Remark 2 makes the trajectory invariant to it
+        # the TRAINING cut: Remark 2 makes the trajectory invariant to it;
+        # the wireless side prices it per round via the cut controller
         self.cut = cut if cut is not None else cnn.DEFAULT_CUT
         if self.cut not in cnn.CUT_CANDIDATES:
             raise ValueError(f"unknown cut {self.cut!r}")
         # the TRAINING codecs: applied in the literal dataflow (activations
         # and gradients at the cut each minibatch, client-block offload
-        # before every edge aggregation)
+        # before every edge aggregation) AND handed to the wireless side so
+        # the scheduler prices the same bits the numerics pay
         self.codecs = codecs
         self.seed = seed
         self.rng = np.random.default_rng(seed)
@@ -181,7 +207,19 @@ class FedSim:
         self._codec_seeds = (make_generator(fold_in(seed, 0xC0DEC))
                              if codecs is not None else None)
 
-        # resumable run state (state_dict/load_state_dict)
+        # wireless scenario: channel + participation (None => ideal network)
+        check_telemetry_off(telemetry)
+        self.scheduler = None
+        if wireless is not None and wireless.model != "ideal":
+            self.scheduler = self._make_scheduler(wireless)
+        # staleness-weighted async edge aggregation (the scheduler banks a
+        # straggler's remainder; its stacked params are snapshotted at the
+        # banking round and folded in at delivery with alpha_u * lambda^s)
+        self.staleness_lambda = (wireless.staleness_lambda
+                                 if self.scheduler is not None else 0.0)
+        self._stale_params = None        # stacked (U, ...) banked snapshots
+
+        # resumable run state (state_dict/load_state_dict, save/restore)
         self._stacked = None
         self._round = 0
         self._edge_round = 0
@@ -190,8 +228,14 @@ class FedSim:
 
         U, B = hcfg.num_clients, hcfg.num_edge_servers
         self.U, self.B, self.Ub = U, B, hcfg.clients_per_es
-        # aggregation weights (paper Eq. 4/6): proportional to |D_u|
-        sizes = np.array([len(i) for i in data.train_indices], np.float64)
+        # aggregation weights (paper Eq. 4/6): proportional to |D_u|.  In
+        # population mode slot identity changes every edge round, so these
+        # are uniform placeholders that _begin_cohort_round overwrites
+        if population is not None:
+            sizes = np.ones(U, np.float64)
+        else:
+            sizes = np.array([len(i) for i in data.train_indices],
+                             np.float64)
         if hcfg.weighting == "uniform":
             sizes = np.ones_like(sizes)
         es_sizes = sizes.reshape(B, self.Ub).sum(axis=1)
@@ -203,6 +247,50 @@ class FedSim:
         ds = data.dataset
         self._x_train = torch.from_numpy(ds.x_train).to(self.device)
         self._y_train = torch.from_numpy(ds.y_train).to(self.device)
+
+    def _make_scheduler(self, wireless):
+        """The reference's scheduler construction: the byte accounting of
+        ``core.comm`` priced by ``repro_torch.wireless.make_scheduler``,
+        with a cut table when the policy adapts or candidates are named,
+        and the ``CohortScheduler`` on this simulator's device in
+        population mode."""
+        from repro_torch.core.comm import comm_for_cnn, comm_table_for_cnn
+        from repro_torch.wireless import make_scheduler
+        hcfg, data, population = self.h, self.data, self.population
+        # Eq. 17 is an UPPER bound, so the shared byte accounting prices
+        # the index payload ceil(log2 |D_u|) at the LARGEST client dataset
+        max_size = int(max(len(i) for i in data.train_indices))
+        if population is not None:
+            from repro_torch.wireless.population import CohortScheduler
+            sched_u = population.N
+            es_assign = population.es_assign
+            extra = dict(cls=CohortScheduler, population=population,
+                         cohort_size=hcfg.num_clients,
+                         sampling=self.sampling, es_balanced=True,
+                         core_device=self.device)
+        else:
+            sched_u = hcfg.num_clients
+            es_assign = es_assignment(hcfg.num_clients, hcfg.clients_per_es)
+            extra = {}
+        kw = dict(dataset_size=max(max_size, 2),
+                  batch_size=self.t.batch_size,
+                  batches_per_epoch=self.batches_per_epoch,
+                  codecs=self.codecs)
+        if wireless.cut_policy != "fixed" or wireless.cut_candidates:
+            table = comm_table_for_cnn(
+                self.cfg, cuts=tuple(wireless.cut_candidates) or None, **kw)
+            if wireless.cut_policy == "fixed" and self.cut not in table:
+                raise ValueError(
+                    f"cut_policy='fixed' would price one of "
+                    f"{tuple(table)} but the training cut is "
+                    f"{self.cut!r}; add it to cut_candidates")
+            return make_scheduler(
+                wireless, sched_u, kappa0=hcfg.kappa0, comm_table=table,
+                es_assign=es_assign,
+                fixed_cut=self.cut if self.cut in table else 0, **extra)
+        comm = comm_for_cnn(self.cfg, cut=self.cut, **kw)
+        return make_scheduler(wireless, sched_u, comm, hcfg.kappa0,
+                              es_assign=es_assign, **extra)
 
     # -------------------------------------------------------------- data --
     def _codec_generator(self, name: str = "") -> torch.Generator:
@@ -218,9 +306,11 @@ class FedSim:
         passes its own stream so fine-tuning is invariant to how much
         training preceded it."""
         rng = self.rng if rng is None else rng
+        shards = self._slot_shard
         idx = np.empty((self.U, batch_size), np.int64)
         for u in range(self.U):
-            own = self.data.train_indices[u]
+            own = self.data.train_indices[u if shards is None
+                                          else int(shards[u])]
             idx[u] = own[rng.choice(len(own), size=batch_size,
                                     replace=len(own) < batch_size)]
         gi = torch.from_numpy(idx).to(self.device)
@@ -287,28 +377,175 @@ class FedSim:
                             _unflatten(head, g))
         return {**stacked, "fc2": new_head}
 
-    # ------------------------------------------------------- aggregation --
-    def _edge_aggregate(self, stacked):
-        """Eqs. (14)-(15): per-ES weighted average, broadcast back."""
-        B, Ub = self.B, self.Ub
-        w = torch.tensor(self.alpha_u.reshape(B, Ub), dtype=torch.float32,
-                         device=self.device)
+    # ---------------------------------------------------------- cohorts ---
+    def _begin_cohort_round(self):
+        """Population mode, top of each edge round: draw the cohort BEFORE
+        the local epochs (the slots must know whose shard to train on),
+        remap slot -> data shard, and recompute the Eq. 4/6 weights from
+        the sampled clients' registered dataset sizes."""
+        cohort = self.scheduler.sample_cohort()
+        self._slot_shard = cohort % self.data.num_clients
+        if self.h.weighting == "uniform":
+            sizes = np.ones(self.U, np.float64)
+        else:
+            sizes = np.asarray(self.population.data_size,
+                               np.float64)[cohort]
+        es_sizes = sizes.reshape(self.B, self.Ub).sum(axis=1)
+        self.alpha_u = (sizes.reshape(self.B, self.Ub)
+                        / es_sizes[:, None]).reshape(self.U)
+        self.alpha_b = es_sizes / es_sizes.sum()
+        return cohort
 
-        def agg(x):
+    # ------------------------------------------------------- aggregation --
+    def _f32(self, a) -> torch.Tensor:
+        """float64 host weights -> float32 on the device, as the reference
+        casts them."""
+        return torch.tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                            device=self.device)
+
+    def _masked_edge_weights(self, mask, stale_w=None):
+        """(B, Ub) weights: alpha_u renormalized over participants, plus the
+        (B,) empty-ES indicator.  A fully-participating ES keeps its alpha_u
+        weights EXACTLY (no renormalization round-off), so an all-ones mask
+        reproduces the ideal-network path bit-for-bit.
+
+        ``stale_w`` (a (U,) array, lambda**staleness per client whose banked
+        update was DELIVERED this round, 0 elsewhere) adds the async fold:
+        each delivery joins its ES's average with raw weight
+        ``alpha_u * stale_w``, and live + stale weights renormalize to sum
+        to 1 together.  Returns ``(w, sw, empty)`` — ``sw`` is None on the
+        exact synchronous path (``stale_w`` None), and an ES counts as empty
+        only if it has neither a live participant nor a delivery."""
+        B, Ub = self.B, self.Ub
+        aw = self.alpha_u.reshape(B, Ub)                     # float64
+        m = np.asarray(mask, np.float64).reshape(B, Ub) > 0
+        raw = np.where(m, aw, 0.0)
+        if stale_w is None:
+            tot = raw.sum(axis=1, keepdims=True)
+            full = m.all(axis=1, keepdims=True)
+            w = np.where(full, aw, raw / np.where(tot > 0, tot, 1.0))
+            return w, None, ~m.any(axis=1)
+        sw = np.asarray(stale_w, np.float64).reshape(B, Ub)
+        raw_stale = aw * sw
+        tot = (raw + raw_stale).sum(axis=1, keepdims=True)
+        denom = np.where(tot > 0, tot, 1.0)
+        return (raw / denom, raw_stale / denom,
+                ~(m | (sw > 0)).any(axis=1))
+
+    def _edge_aggregate(self, stacked, mask=None, fallback=None, stale=None,
+                        stale_w=None):
+        """Eqs. (14)-(15): per-ES weighted average, broadcast back.
+
+        With a participation ``mask`` the weights renormalize over the
+        participating clients of each ES; an ES with zero participants keeps
+        ``fallback`` (its model from before this edge round's local steps).
+        ``stale``/``stale_w`` fold banked straggler snapshots into the same
+        average with weight ``alpha_u * lambda**staleness`` (see
+        ``_masked_edge_weights``)."""
+        B, Ub = self.B, self.Ub
+        if mask is None:
+            w64, sw64 = self.alpha_u.reshape(B, Ub), None
+            empty = np.zeros(B, bool)
+        else:
+            w64, sw64, empty = self._masked_edge_weights(mask, stale_w)
+            assert fallback is not None or not empty.any()
+        w = self._f32(w64)
+        ws = None if sw64 is None else self._f32(sw64)
+        sel = torch.as_tensor(empty, device=self.device)
+        fold = stale is not None and ws is not None
+
+        def agg(x, fb=None, st=None):
             xr = x.reshape((B, Ub) + x.shape[1:])
             wexp = w.reshape((B, Ub) + (1,) * (x.dim() - 1))
             m = (xr * wexp).sum(dim=1, keepdim=True)
-            return m.expand(xr.shape).reshape(x.shape)
+            if st is not None:
+                swexp = ws.reshape((B, Ub) + (1,) * (x.dim() - 1))
+                m = m + (st.reshape(xr.shape) * swexp).sum(dim=1,
+                                                           keepdim=True)
+            out = m.expand(xr.shape)
+            if fb is not None and empty.any():
+                out = torch.where(
+                    sel.reshape((B, 1) + (1,) * (x.dim() - 1)),
+                    fb.reshape(xr.shape), out)
+            return out.reshape(x.shape)
 
-        return tree_map(agg, stacked)
+        if mask is None or fallback is None:
+            return tree_map(agg, stacked)
+        if fold:
+            return tree_map(agg, stacked, fallback, stale)
+        return tree_map(agg, stacked, fallback)
 
-    def _global_aggregate(self, stacked):
-        """Eq. (16): CS-level weighted average over ESs, broadcast back."""
+    def _mapped_edge_weights(self, mask, es_map, stale_w=None):
+        """(B, U) weight matrix for an ES-outage failover round.
+
+        ``es_map`` (``RoundReport.es_map``) sends each client's update to
+        its EFFECTIVE ES, so a re-associated client joins the live ES's
+        average with its own alpha_u weight, renormalized together with
+        that ES's home participants (and any stale deliveries).  Returns
+        ``(w, sw, empty)`` like :meth:`_masked_edge_weights`; ``empty``
+        marks ESs that aggregated nothing (dead, or no participants) —
+        their clients keep their fallback params."""
+        B, U = self.B, self.U
+        m = np.asarray(mask, np.float64) > 0
+        onehot = np.zeros((B, U))
+        onehot[np.asarray(es_map, int), np.arange(U)] = 1.0
+        raw = onehot * np.where(m, self.alpha_u, 0.0)[None, :]
+        sw = np.zeros(U) if stale_w is None else np.asarray(stale_w,
+                                                            np.float64)
+        raw_stale = onehot * (self.alpha_u * sw)[None, :]
+        tot = (raw + raw_stale).sum(axis=1, keepdims=True)
+        denom = np.where(tot > 0, tot, 1.0)
+        return raw / denom, raw_stale / denom, tot[:, 0] <= 0
+
+    def _edge_aggregate_mapped(self, stacked, mask, fallback, es_map,
+                               stale=None, stale_w=None):
+        """Eqs. (14)-(15) under ES failover: aggregate by EFFECTIVE ES.
+
+        Each client receives the refreshed model of the ES it actually
+        worked with this round (``es_map``); a client whose effective ES
+        aggregated nothing keeps ``fallback`` — which is exactly how a dead
+        ES's edge model is carried forward."""
+        w64, sw64, empty = self._mapped_edge_weights(mask, es_map, stale_w)
+        w = self._f32(w64)                                     # (B, U)
+        ws = self._f32(sw64)
+        recv = torch.as_tensor(np.asarray(es_map, np.int64),
+                               device=self.device)             # (U,)
+        keep_fb = torch.as_tensor(empty, device=self.device)[recv]
+
+        def agg(x, fb, st=None):
+            flat = x.reshape((self.U, -1))
+            es = w @ flat                                      # (B, prod)
+            if st is not None:
+                es = es + ws @ st.reshape((self.U, -1))
+            out = torch.where(keep_fb[:, None], fb.reshape((self.U, -1)),
+                              es[recv])
+            return out.reshape(x.shape)
+
+        if stale is not None and stale_w is not None:
+            return tree_map(agg, stacked, fallback, stale)
+        return tree_map(agg, stacked, fallback)
+
+    def _global_aggregate(self, stacked, es_mask=None):
+        """Eq. (16): CS-level weighted average over ESs, broadcast back.
+
+        ``es_mask`` marks ESs that had at least one participating client
+        this global round; alpha_b renormalizes over them (all ESs still
+        RECEIVE the broadcast).  With no participating ES at all the models
+        are left untouched (no global sync happened)."""
         B, Ub = self.B, self.Ub
-        wu = torch.tensor(self.alpha_u.reshape(B, Ub), dtype=torch.float32,
-                          device=self.device)
-        wb = torch.tensor(self.alpha_b, dtype=torch.float32,
-                          device=self.device)
+        wu = self._f32(self.alpha_u.reshape(B, Ub))
+        if es_mask is None:
+            wb64 = self.alpha_b
+        else:
+            m = np.asarray(es_mask, np.float64) > 0
+            if not m.any():
+                return stacked
+            if m.all():
+                wb64 = self.alpha_b                          # exact path
+            else:
+                raw = np.where(m, self.alpha_b, 0.0)
+                wb64 = raw / raw.sum()
+        wb = self._f32(wb64)
 
         def agg(x):
             xr = x.reshape((B, Ub) + x.shape[1:])
@@ -328,24 +565,122 @@ class FedSim:
                 lambda x: x[None].expand((self.U,) + x.shape).contiguous(),
                 params0)
 
+    def _per_client(self, mask) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(mask, bool), device=self.device)
+
+    def _network_edge_round(self, stacked, prev, cohort, res, es_any,
+                            parts):
+        """One scheduled edge round: the scheduler's report, its network
+        row, the stale bank, and the masked (or mapped) aggregation.
+        Returns the aggregated replicas."""
+        rep = self.scheduler.step(self._edge_round)
+        self._edge_round += 1
+        if cohort is not None:
+            # population-wide (N,) report -> this round's slots
+            from repro_torch.wireless.population import cohort_report
+            rep = cohort_report(rep, cohort)
+        live = rep.mask > 0
+        if rep.es_map is not None:
+            # failover round: participation counts for the ES the client
+            # actually worked with
+            es_any |= np.bincount(rep.es_map[live], minlength=self.B) > 0
+        else:
+            es_any |= live.reshape(self.B, self.Ub).any(1)
+        parts.append(rep.num_participants)
+        self._sim_time += rep.round_time_s
+        res.total_sim_time_s = self._sim_time
+        row = {"edge_round": rep.round_idx,
+               "participants": rep.num_participants,
+               "scheduled": int(rep.scheduled.sum()),
+               "round_time_s": rep.round_time_s,
+               "bits": rep.bits_tx}
+        if rep.mean_cut is not None:
+            row["mean_cut"] = rep.mean_cut
+        if rep.compute_s is not None and rep.compute_s.any():
+            row["compute_s_max"] = float(rep.compute_s.max())
+            row["compute_j"] = float(rep.compute_j.sum())
+        if rep.crashed is not None:
+            row["crashed"] = int(rep.crashed.sum())
+            row["failed"] = int(rep.failed.sum())
+            row["retx_bits"] = rep.retx_bits
+            row["retx_j"] = rep.retx_j
+        if rep.es_down is not None:
+            row["es_down"] = int(rep.es_down.sum())
+        # staleness-weighted async fold (lambda > 0 only): deliveries read
+        # the snapshots banked in EARLIER rounds (delivered requires idle,
+        # banked requires scheduled, so the two sets never overlap within
+        # a round), then this round's new stragglers are snapshotted
+        # BEFORE the aggregation overwrites their local models
+        stale_tree = stale_w = None
+        if rep.stale_delivered is not None:
+            deliv = rep.stale_delivered > 0
+            if deliv.any() and self._stale_params is not None:
+                stale_w = np.where(
+                    deliv, self.staleness_lambda ** rep.stale_delivered, 0.0)
+                stale_tree = self._stale_params
+            row["stale_banked"] = int(rep.stale_banked.sum())
+            row["stale_delivered"] = int(deliv.sum())
+            row["stale_dropped"] = int(rep.stale_dropped.sum())
+        res.network.append(row)
+        if rep.stale_banked is not None and rep.stale_banked.any():
+            if self._stale_params is None:
+                self._stale_params = tree_map(torch.clone, stacked)
+            else:
+                sel = self._per_client(rep.stale_banked)
+                self._stale_params = tree_map(
+                    lambda b, x: torch.where(
+                        sel.reshape((self.U,) + (1,) * (x.dim() - 1)), x, b),
+                    self._stale_params, stacked)
+        if rep.es_map is not None:
+            # reassoc failover: aggregate by the EFFECTIVE ES
+            agged = self._edge_aggregate_mapped(
+                stacked, rep.mask, prev, rep.es_map, stale=stale_tree,
+                stale_w=stale_w)
+        else:
+            agged = self._edge_aggregate(stacked, mask=rep.mask,
+                                         fallback=prev, stale=stale_tree,
+                                         stale_w=stale_w)
+        if rep.down_failed is not None and rep.down_failed.any():
+            # lost downlink: the ES has this client's update (it
+            # aggregated) but the client never received the refreshed
+            # edge model — it keeps its own
+            keep = self._per_client(rep.down_failed)
+            agged = tree_map(
+                lambda new, old: torch.where(
+                    keep.reshape((self.U,) + (1,) * (new.dim() - 1)),
+                    old, new), agged, stacked)
+        if cohort is not None:
+            # registry bookkeeping: participants now hold the edge model
+            # refreshed at this round
+            self.population.head_slot[cohort[live]] = rep.round_idx
+        return agged
+
     @torch.no_grad()
     def run(self, rounds: int | None = None, log_every: int = 5) -> FedSimResult:
         """Train up to ``rounds`` TOTAL global rounds.
 
         The round count is absolute, not incremental: a fresh simulator
-        runs them all, while one restored by ``load_state_dict`` (or simply
-        run() a second time) continues from its round cursor."""
+        runs them all, while one restored by ``load_state_dict`` or
+        ``restore`` (or simply run() a second time) continues from its
+        round cursor, bit for bit: every RNG stream, the staleness bank and
+        the simulated clock are state."""
         h, t = self.h, self.t
         rounds = rounds if rounds is not None else h.global_rounds
         self._ensure_initialized()
         stacked = self._stacked
         res = FedSimResult()
         res.total_sim_time_s = self._sim_time
+        sched = self.scheduler
         per = None
 
         for t2 in range(self._round, rounds):
             round_losses = []
+            es_any = np.zeros(self.B, bool)
+            parts = []
             for _t1 in range(h.kappa1):                      # edge rounds
+                prev = stacked if sched is not None else None
+                cohort = (self._begin_cohort_round()
+                          if self.population is not None else None)
                 for _ in range(h.kappa0):                    # local epochs
                     for _ in range(self.batches_per_epoch):  # minibatches
                         x, y = self._sample_minibatches(t.batch_size)
@@ -355,8 +690,15 @@ class FedSim:
                     # the client block crosses the uplink lossily before
                     # every edge aggregation (Phi_off's numerics side)
                     stacked = self._offload_step(stacked)
-                stacked = self._edge_aggregate(stacked)      # Eq. 14-15
-            stacked = self._global_aggregate(stacked)        # Eq. 16
+                if sched is None:
+                    stacked = self._edge_aggregate(stacked)  # Eq. 14-15
+                else:                                        # masked Eq. 14-15
+                    stacked = self._network_edge_round(
+                        stacked, prev, cohort, res, es_any, parts)
+            if sched is None:
+                stacked = self._global_aggregate(stacked)    # Eq. 16
+            else:                                            # masked Eq. 16
+                stacked = self._global_aggregate(stacked, es_mask=es_any)
             self._stacked = stacked
             self._round = t2 + 1
 
@@ -366,11 +708,14 @@ class FedSim:
                 # per-step means go to the host once per round, as float64
                 # means of float32 values (the reference's float() per step)
                 losses = torch.stack(round_losses).cpu().numpy()
-                res.history.append({
-                    "round": t2 + 1,
-                    "train_loss": float(np.mean(losses.astype(np.float64))),
-                    "test_loss": float(np.mean(per["loss"])),
-                    "test_acc": float(np.mean(per["acc"]))})
+                row = {"round": t2 + 1,
+                       "train_loss": float(np.mean(losses.astype(np.float64))),
+                       "test_loss": float(np.mean(per["loss"])),
+                       "test_acc": float(np.mean(per["acc"]))}
+                if sched is not None:
+                    row["mean_participants"] = float(np.mean(parts))
+                    row["sim_time_s"] = res.total_sim_time_s
+                res.history.append(row)
         res.global_params = tree_map(lambda x: x[0], stacked)
         res.per_client_global = (per if per is not None
                                  else self._per_client_eval(stacked))
@@ -378,9 +723,11 @@ class FedSim:
 
     # ----------------------------------------------------- checkpointing --
     def state_dict(self) -> dict:
-        """What the trajectory depends on, in memory: the stacked client
+        """Everything the trajectory depends on: the stacked client
         replicas, the round cursors, the simulated clock, the data-sampling
-        RNG and (with codecs) the codec seed chain."""
+        RNG, (with codecs) the codec seed chain, the scheduler's state
+        (budgets, stale bank, channel/thinning/fault/population streams)
+        and the banked stale snapshots, under the reference's keys."""
         self._ensure_initialized()
         out = {"round": np.int64(self._round),
                "edge_round": np.int64(self._edge_round),
@@ -389,29 +736,65 @@ class FedSim:
                "params": self._stacked}
         if self._codec_seeds is not None:
             out["codec_rng"] = self._codec_seeds.get_state().numpy()
+        if self.scheduler is not None:
+            out["scheduler"] = self.scheduler.state_dict()
+        if self.staleness_lambda > 0.0:
+            # fixed structure whether or not a bank exists yet, so the
+            # checkpoint tree shape is round-independent
+            has = self._stale_params is not None
+            out["stale_has"] = np.int64(has)
+            out["stale_params"] = (self._stale_params if has else
+                                   tree_map(torch.zeros_like, self._stacked))
         return out
+
+    def _stacked_leaf(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.array(a, copy=True))
+        if t.shape[:1] != (self.U,):
+            raise ValueError(f"params leaf of shape {tuple(t.shape)} is "
+                             f"not stacked over {self.U} clients")
+        return t.detach().to(self.device, copy=True)
 
     def load_state_dict(self, state: dict) -> None:
         """Restore from :meth:`state_dict`, or from the reference's own
         ``FedSim.state_dict()`` with its leaves as numpy arrays (its
         ``codec_key`` is a jax key, which no torch stream reproduces: the
         codec chain then stays where it is)."""
-        def leaf(a):
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-                np.array(a, copy=True))
-            if t.shape[:1] != (self.U,):
-                raise ValueError(f"params leaf of shape {tuple(t.shape)} is "
-                                 f"not stacked over {self.U} clients")
-            return t.detach().to(self.device, copy=True)
-
         self._round = int(state["round"])
         self._edge_round = int(state["edge_round"])
         self._sim_time = float(state["sim_time_s"])
         restore_rng_state(self.rng, state["rng"])
-        self._stacked = tree_map(leaf, state["params"])
+        self._stacked = tree_map(self._stacked_leaf, state["params"])
         if self._codec_seeds is not None and "codec_rng" in state:
             self._codec_seeds.set_state(
                 torch.from_numpy(np.asarray(state["codec_rng"], np.uint8)))
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+        if self.staleness_lambda > 0.0:
+            self._stale_params = (
+                tree_map(self._stacked_leaf, state["stale_params"])
+                if int(state["stale_has"]) else None)
+
+    def save(self, directory: str, step: int | None = None) -> str:
+        """Atomic checkpoint of :meth:`state_dict` (step defaults to the
+        global-round cursor)."""
+        from repro_torch.checkpoint.ckpt import save_checkpoint
+        return save_checkpoint(directory,
+                               self._round if step is None else step,
+                               self.state_dict())
+
+    def restore(self, directory: str, step: int | None = None) -> int | None:
+        """Load the latest (or ``step``'s) checkpoint from ``directory``
+        into this simulator; returns the restored step, or None when the
+        directory holds no checkpoint (fresh start)."""
+        from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint
+        if step is None:
+            step = latest_step(directory)
+        if step is None:
+            return None
+        state = load_checkpoint(directory, step, self.state_dict())
+        self.load_state_dict(state)
+        return step
 
     # -------------------------------------------------------------- eval --
     @torch.no_grad()

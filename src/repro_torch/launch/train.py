@@ -1,22 +1,27 @@
-"""End-to-end PHSFL training driver (``repro.launch.train``), on the ideal
-network: kappa0 local SGD steps per client with the head frozen (Eq. 12),
-edge aggregation (Eqs. 14-15) every round, then per-client head
-fine-tuning (Eq. 18) and the global against the personalized loss of
-every client.
+"""End-to-end PHSFL training driver (``repro.launch.train``): kappa0
+local SGD steps per client with the head frozen (Eq. 12), edge
+aggregation (Eqs. 14-15) every round, then per-client head fine-tuning
+(Eq. 18) and the global against the personalized loss of every client.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --rounds 20 --clients 4 --seq 128          # on the card
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --channel rayleigh --deadline 0.5 --population 64
 
 ``main`` takes the reference's flags and defaults and trains the
 architecture's reduced config, as the reference does; ``train`` takes any
 config (full width on the card) and, optionally, parameters carried from
-elsewhere.  The wireless scheduler (``--channel`` other than ideal,
-``--population``) and telemetry (``--trace-dir``) come with later slices
-and raise ``NotImplementedError``; as in the reference, the codec, cut,
-compute and fault flags price only a non-ideal network and have no
-effect here.  The mesh round waits for the mesh slice: every run takes
-the reference's one-device path, ``make_host_round``.
+elsewhere.  A non-ideal ``--channel`` builds the reference's wireless
+scheduler (``build_scheduler``): each round's participation mask goes
+into the masked edge step, the codec, cut, compute and fault flags price
+the traffic (``core.comm.comm_for_lm`` / ``comm_table_for_lm``), and the
+scheduler's state joins the state checkpoint, so ``--resume`` replays the
+exact fault schedule.  ``--population N`` samples each round's cohort of
+``--clients`` training slots from N registered clients through the
+``CohortScheduler``, whose decision core runs on the training device.
+Telemetry (``--trace-dir``) comes with a later slice and raises
+``NotImplementedError``.  The mesh round waits for the mesh slice: every
+run takes the reference's one-device path, ``make_host_round``.
 """
 
 from __future__ import annotations
@@ -25,14 +30,17 @@ import argparse
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
-from repro_torch.configs.base import HierarchyConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (FaultConfig, HierarchyConfig,
+                                      ModelConfig, TrainConfig,
+                                      WirelessConfig)
 from repro_torch.configs.registry import get_arch
+from repro_torch.core.hierarchy import es_assignment
 from repro_torch.core.personalize import (personalize_head_bank,
                                           personalized_eval)
 from repro_torch.core.phsfl import (build_optimizer, make_host_round,
@@ -85,6 +93,8 @@ class TrainResult:
     finetune_losses: torch.Tensor | None = None  # (C, K)
     global_eval: torch.Tensor | None = None      # (C,) shared head
     personalized_eval: torch.Tensor | None = None  # (C,) own head
+    sim_time_s: float = 0.0  # simulated network clock (0 on the ideal one)
+    network: list = field(default_factory=list)  # scheduler row a round
 
     @property
     def final_loss(self) -> float:
@@ -105,7 +115,8 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
           seq: int = 128, lr: float = 0.05, hsfl: bool = False,
           finetune_steps: int = 5, seed: int = 0, ckpt_dir=None,
           ckpt_every: int = 0, resume: bool = False, abort_after=None,
-          device=None, log: MetricLogger | None = None) -> TrainResult:
+          device=None, log: MetricLogger | None = None,
+          scheduler=None) -> TrainResult:
     """``rounds`` edge rounds of ``clients`` clients in one ES (each round
     ``local_steps`` steps of ``micro`` x ``seq`` tokens a client, with the
     head frozen unless ``hsfl``), then a head bank of ``finetune_steps``
@@ -119,6 +130,12 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     ``resume`` continues from the latest one, bit-identically, since each
     round's batches are seeded ``seed + round``.  ``abort_after`` stops
     right after that round's checkpoint (a crash, for the resume check).
+
+    ``scheduler`` (from :func:`build_scheduler`; None = the ideal network)
+    decides each round's participants: its mask goes into the masked edge
+    step, its round time advances the simulated clock, and its state
+    (budgets, stale bank, every RNG stream, the population's) joins the
+    state checkpoint.
     """
     dev = resolve_device(device)
     log = log or MetricLogger("train")
@@ -133,7 +150,10 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     round_ = make_host_round(model, hcfg, tcfg, num_clients=C,
-                             global_sync=False, cut=cfg.n_client_layers)
+                             global_sync=False,
+                             participation=scheduler is not None,
+                             cut=cfg.n_client_layers)
+    population = getattr(scheduler, "population", None)
 
     one = (model.init(make_generator(seed, dev)) if params is None
            else tree_map(lambda t: t.to(dev), params))
@@ -149,8 +169,11 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     state_dir = os.path.join(ckpt_dir, "state") if ckpt_dir else None
 
     def run_state(r):
-        return {"params": params, "opt_state": opt_state,
-                "round": np.int64(r), "sim_time_s": np.float64(sim_time)}
+        st = {"params": params, "opt_state": opt_state,
+              "round": np.int64(r), "sim_time_s": np.float64(sim_time)}
+        if scheduler is not None:
+            st["scheduler"] = scheduler.state_dict()
+        return st
 
     if resume and state_dir:
         step = latest_step(state_dir)
@@ -159,6 +182,8 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
             params, opt_state = st["params"], st["opt_state"]
             start_round = int(st["round"])
             sim_time = float(st["sim_time_s"])
+            if scheduler is not None:
+                scheduler.load_state_dict(st["scheduler"])
             log.log(resumed_from_round=float(start_round))
 
     res = TrainResult([], [], C * local_steps * micro * seq, None, params,
@@ -168,11 +193,31 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
         batch = _client_round_batch(cfg, C, local_steps, micro, seq,
                                     seed=seed + r, device=dev)
         r0 = _synced_clock(dev)
-        params, opt_state, metrics = round_.fn(params, opt_state, batch,
-                                               au, ab)
+        if scheduler is None:
+            params, opt_state, metrics = round_.fn(params, opt_state, batch,
+                                                   au, ab)
+            net = {}
+        else:
+            rep = scheduler.step(r)
+            if population is not None:
+                # (N,)-wide report -> this round's C training slots
+                from repro_torch.wireless.population import cohort_report
+                rep = cohort_report(rep, scheduler.last_cohort)
+            sim_time += rep.round_time_s
+            mask = torch.as_tensor(rep.mask, dtype=torch.float32, device=dev)
+            params, opt_state, metrics = round_.fn(params, opt_state, batch,
+                                                   au, ab, mask)
+            net = {"participants": rep.num_participants,
+                   "round_time_s": rep.round_time_s,
+                   "sim_time_s": sim_time, "bits_tx": rep.bits_tx}
+            if rep.mean_cut is not None:
+                net["mean_cut"] = rep.mean_cut
+            if rep.compute_s is not None and rep.compute_s.any():
+                net["compute_s_max"] = float(rep.compute_s.max())
+            res.network.append(net)
         res.round_seconds.append(_synced_clock(dev) - r0)
         res.losses.append(float(metrics["loss"]))
-        log.log(step=r, loss=metrics["loss"],
+        log.log(step=r, loss=metrics["loss"], **net,
                 s_per_round=(time.time() - t0) / (r + 1))
         if state_dir and ckpt_every > 0 and (r + 1) % ckpt_every == 0:
             save_checkpoint(state_dir, r + 1, run_state(r + 1))
@@ -180,6 +225,7 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
             res.aborted_after = r + 1
             break
     res.params, res.opt_state = params, opt_state
+    res.sim_time_s = sim_time
     if res.aborted_after is None:
         _personalize(res, model, cfg, tcfg, C, micro, seq, dev, log)
         if ckpt_dir:
@@ -211,13 +257,54 @@ def _personalize(res: TrainResult, model, cfg, tcfg, C, micro, seq, dev,
     log.log(personalization_gain=res.personalization_gain)
 
 
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} comes with a later slice of the port "
-                              f"(ROADMAP.md §1 item {item}); this driver "
-                              f"runs the ideal network")
+def build_scheduler(cfg: ModelConfig, wcfg: WirelessConfig, *,
+                    clients: int, seq: int, rounds: int, local_steps: int,
+                    micro: int, codecs=None, population: int = 0,
+                    sampling: str = "uniform", seed: int = 0, device=None):
+    """The reference's wireless scheduler of ``main``: the LM's byte
+    accounting (``comm_for_lm``, or ``comm_table_for_lm`` over
+    ``wcfg.cut_candidates`` when the cut policy adapts) priced by
+    ``make_scheduler`` for ``clients`` clients on one ES, or, with
+    ``population`` > 0, a ``CohortScheduler`` on ``device`` over that many
+    registered clients (seeded ``seed``) that samples ``clients`` of them
+    a round."""
+    from repro_torch.core.comm import comm_for_lm, comm_table_for_lm
+    from repro_torch.wireless import make_scheduler
+    comm_kw = dict(seq_len=seq, dataset_size=rounds * local_steps * micro,
+                   batch_size=micro, batches_per_epoch=1, codecs=codecs)
+    if population:
+        from repro_torch.wireless.population import (CohortScheduler,
+                                                     Population)
+        pop = Population(population, seed=seed)
+        sched_u, es_assign = pop.N, pop.es_assign
+        extra = dict(cls=CohortScheduler, population=pop,
+                     cohort_size=clients, sampling=sampling,
+                     core_device=device)
+    else:
+        sched_u, es_assign = clients, es_assignment(clients, clients)
+        extra = {}
+    candidates = tuple(wcfg.cut_candidates)
+    if wcfg.cut_policy != "fixed" or candidates:
+        table = comm_table_for_lm(
+            cfg, cuts=candidates or (cfg.n_client_layers,), **comm_kw)
+        if wcfg.cut_policy == "fixed" and cfg.n_client_layers not in table:
+            raise ValueError(
+                f"--cut-policy fixed would price one of {tuple(table)} "
+                f"but the model's client depth is {cfg.n_client_layers}; "
+                f"include it in --cut-candidates")
+        return make_scheduler(
+            wcfg, sched_u, kappa0=local_steps, comm_table=table,
+            es_assign=es_assign,
+            fixed_cut=cfg.n_client_layers
+            if cfg.n_client_layers in table else 0, **extra)
+    return make_scheduler(wcfg, sched_u, comm_for_lm(cfg, **comm_kw),
+                          local_steps, es_assign=es_assign, **extra)
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The reference's flags (and ``--device``), with its defaults and
+    usage errors; ``args.clients`` is the cohort size in population
+    mode."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="xlstm-350m")
     ap.add_argument("--rounds", type=int, default=10)
@@ -244,62 +331,170 @@ def main(argv=None):
                          "checkpoint (crash simulation for the resume "
                          "check)")
     ap.add_argument("--seed", type=int, default=0)
-    # ---- the reference's population, wireless, device-model, fault and
-    # codec flags: all price a non-ideal network (later slices) ----
-    ap.add_argument("--population", type=int, default=0)
-    ap.add_argument("--cohort-size", type=int, default=None)
+    # ---- population-scale cohorts (repro_torch.wireless.population) ----
+    ap.add_argument("--population", type=int, default=0,
+                    help="register N clients in a persistent population and "
+                         "sample a cohort per round; the scheduler then "
+                         "prices ALL N channels/budgets while only the "
+                         "cohort trains (0 = classic fixed-client mode). "
+                         "Requires a non-ideal --channel")
+    ap.add_argument("--cohort-size", type=int, default=None,
+                    help="clients trained per round in population mode "
+                         "(default: --clients); becomes the slot count of "
+                         "the host round")
     ap.add_argument("--sampling", default="uniform",
-                    choices=["uniform", "rate", "pareto"])
+                    choices=["uniform", "rate", "pareto"],
+                    help="cohort sampling rule: uniform, biased toward "
+                         "good channels (rate), or a Pareto-style "
+                         "participation cap (least-sampled first)")
+    # ---- wireless scenario (repro_torch.wireless) ----
     ap.add_argument("--channel", default="ideal",
-                    choices=["ideal", "static", "rayleigh"])
-    ap.add_argument("--deadline", type=float, default=float("inf"))
-    ap.add_argument("--mean-rate-mbps", type=float, default=100.0)
-    ap.add_argument("--energy-budget", type=float, default=float("inf"))
-    ap.add_argument("--es-uplink-mbps", type=float, default=float("inf"))
+                    choices=["ideal", "static", "rayleigh"],
+                    help="per-client channel model (ideal = pre-wireless)")
+    ap.add_argument("--deadline", type=float, default=float("inf"),
+                    help="edge-round deadline in seconds; stragglers drop")
+    ap.add_argument("--mean-rate-mbps", type=float, default=100.0,
+                    help="mean per-client uplink rate")
+    ap.add_argument("--energy-budget", type=float, default=float("inf"),
+                    help="lifetime per-client uplink energy budget (J)")
+    ap.add_argument("--es-uplink-mbps", type=float, default=float("inf"),
+                    help="shared ES uplink capacity, split among that "
+                         "round's scheduled clients (inf = private uplinks)")
     ap.add_argument("--cut-policy", default="fixed",
-                    choices=["fixed", "greedy", "deadline"])
-    ap.add_argument("--cut-candidates", type=int, nargs="+", default=None)
-    ap.add_argument("--compute-gflops", type=float, default=float("inf"))
-    ap.add_argument("--compute-heterogeneity", type=float, default=0.0)
-    ap.add_argument("--compute-power-w", type=float, default=0.0)
-    ap.add_argument("--codec-cycles", type=float, default=0.0)
-    ap.add_argument("--erasure-prob", type=float, default=0.0)
-    ap.add_argument("--harq-retries", type=int, default=2)
-    ap.add_argument("--harq-backoff", type=float, default=0.0)
-    ap.add_argument("--crash-hazard", type=float, default=0.0)
-    ap.add_argument("--pipeline", action="store_true")
+                    choices=["fixed", "greedy", "deadline"],
+                    help="per-round cut-layer selection policy "
+                         "(repro_torch.wireless.cutter)")
+    ap.add_argument("--cut-candidates", type=int, nargs="+", default=None,
+                    help="candidate client depths (n_client_layers), "
+                         "shallow to deep; default: the model's depth only")
+    # ---- device (compute) model (repro_torch.wireless.device) ----
+    ap.add_argument("--compute-gflops", type=float, default=float("inf"),
+                    help="per-client compute rate in GFLOP/s; client-block "
+                         "FLOPs then cost round time and energy (inf = "
+                         "free compute, the bits-only accounting)")
+    ap.add_argument("--compute-heterogeneity", type=float, default=0.0,
+                    help="lognormal sigma of a fixed per-client compute "
+                         "scale (0 = identical devices)")
+    ap.add_argument("--compute-power-w", type=float, default=0.0,
+                    help="power drawn while computing; joins tx energy in "
+                         "the per-client budget gate")
+    ap.add_argument("--codec-cycles", type=float, default=0.0,
+                    help="FLOPs per element crossing a lossy codec "
+                         "(encode/decode compute; 0 = codecs compute-free)")
+    # ---- fault injection (repro_torch.wireless.faults) ----
+    ap.add_argument("--erasure-prob", type=float, default=0.0,
+                    help="per-attempt payload erasure probability; erased "
+                         "transmissions retransmit (HARQ) as real timeline "
+                         "segments, priced in the deadline/energy/bits "
+                         "accounting")
+    ap.add_argument("--harq-retries", type=int, default=2,
+                    help="max retransmissions per payload before it FAILS")
+    ap.add_argument("--harq-backoff", type=float, default=0.0,
+                    help="radio-idle seconds before each retransmission")
+    ap.add_argument("--crash-hazard", type=float, default=0.0,
+                    help="per-round probability a scheduled client dies "
+                         "mid-round (timeline frozen at the crash instant)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="overlap client compute with uplink streaming at "
+                         "minibatch granularity (repro_torch.wireless.timeline); "
+                         "the deadline/energy gates and the accounting "
+                         "price the overlapped timeline.  Staleness-"
+                         "weighted async aggregation (staleness_lambda) is "
+                         "a FedSim-side fold and is not exposed here — this "
+                         "driver prices the scheduler side only")
+    # ---- compression (repro_torch.compress) ----
     ap.add_argument("--codec", default="fp32",
-                    choices=["fp32", "int8", "int4", "topk", "fp8"])
-    ap.add_argument("--codec-bits", type=int, default=None)
-    ap.add_argument("--topk-frac", type=float, default=0.05)
-    ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("--metrics-every", type=int, default=1)
+                    choices=["fp32", "int8", "int4", "topk", "fp8"],
+                    help="codec for the split-learning wire payloads "
+                         "(activations up, gradients down, offloads); this "
+                         "driver prices it in the wireless accounting — the "
+                         "CNN simulator (benchmarks/compress_sweep.py) "
+                         "additionally applies it in the dataflow")
+    ap.add_argument("--codec-bits", type=int, default=None,
+                    help="override the uniform quantizer's bit width")
+    ap.add_argument("--topk-frac", type=float, default=0.05,
+                    help="kept fraction for --codec topk")
+    # ---- observability (a later slice of the port) ----
+    ap.add_argument("--trace-dir", default=None,
+                    help="telemetry output directory (a later slice of the "
+                         "port: raises)")
+    ap.add_argument("--metrics-every", type=int, default=1,
+                    help="metrics snapshot period in rounds (with "
+                         "--trace-dir)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-
     if args.population:
         if args.channel == "ideal":
             ap.error("--population requires a non-ideal --channel (the "
                      "cohort sampler lives on the wireless scheduler)")
-        _later("population-scale cohorts (--population)", "4")
-    if args.channel != "ideal":
-        _later(f"the wireless scheduler (--channel {args.channel})", "4")
-    if args.trace_dir:
-        _later("telemetry (--trace-dir)", "5")
+        args.clients = args.cohort_size or args.clients
+        if args.population < args.clients:
+            ap.error("--population must be >= the cohort size")
+    return args
 
-    res = train(get_arch(args.arch).reduced(), rounds=args.rounds,
-                clients=args.clients, local_steps=args.local_steps,
-                micro=args.micro, seq=args.seq, lr=args.lr,
-                hsfl=args.hsfl, finetune_steps=args.finetune_steps,
-                seed=args.seed, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every, resume=args.resume,
-                abort_after=args.abort_after, device=args.device)
+
+def scheduler_from_args(cfg: ModelConfig, args, device=None):
+    """The wireless scheduler ``main`` builds from its flags (None on the
+    ideal network): the reference's ``WirelessConfig`` of the flags (the
+    downlink at 4x the uplink), their codec, and :func:`build_scheduler`
+    on ``device``."""
+    if args.channel == "ideal":
+        return None
+    from repro_torch.compress import link_codecs
+    codecs = None
+    if args.codec != "fp32":
+        codecs = link_codecs(args.codec, bits=args.codec_bits,
+                             topk_frac=args.topk_frac)
+    wcfg = WirelessConfig(model=args.channel,
+                          mean_uplink_mbps=args.mean_rate_mbps,
+                          mean_downlink_mbps=4 * args.mean_rate_mbps,
+                          deadline_s=args.deadline,
+                          energy_budget_j=args.energy_budget,
+                          es_uplink_mbps=args.es_uplink_mbps,
+                          cut_policy=args.cut_policy,
+                          cut_candidates=tuple(args.cut_candidates or ()),
+                          compute_gflops=args.compute_gflops,
+                          compute_heterogeneity=args.compute_heterogeneity,
+                          compute_power_w=args.compute_power_w,
+                          codec_cycles_per_element=args.codec_cycles,
+                          pipeline=args.pipeline,
+                          faults=FaultConfig(erasure_prob=args.erasure_prob,
+                                             max_retries=args.harq_retries,
+                                             backoff_s=args.harq_backoff,
+                                             crash_hazard=args.crash_hazard),
+                          seed=args.seed)
+    return build_scheduler(
+        cfg, wcfg, clients=args.clients, seq=args.seq, rounds=args.rounds,
+        local_steps=args.local_steps, micro=args.micro, codecs=codecs,
+        population=args.population, sampling=args.sampling,
+        seed=args.seed, device=resolve_device(device))
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.trace_dir:
+        raise NotImplementedError("telemetry (--trace-dir) comes with a "
+                                  "later slice of the port (ROADMAP.md §1 "
+                                  "item 5)")
+    cfg = get_arch(args.arch).reduced()
+    scheduler = scheduler_from_args(cfg, args, args.device)
+    res = train(cfg, rounds=args.rounds, clients=args.clients,
+                local_steps=args.local_steps, micro=args.micro,
+                seq=args.seq, lr=args.lr, hsfl=args.hsfl,
+                finetune_steps=args.finetune_steps, seed=args.seed,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                resume=args.resume, abort_after=args.abort_after,
+                device=args.device, scheduler=scheduler)
     if res.aborted_after is not None:
         print(json.dumps({"aborted_after_round": res.aborted_after}))
         return res
-    print(json.dumps({"final_loss": res.final_loss,
-                      "personalization_gain": res.personalization_gain}))
+    out = {"final_loss": res.final_loss,
+           "personalization_gain": res.personalization_gain}
+    if scheduler is not None:
+        out["sim_time_s"] = res.sim_time_s
+        out["energy_left_j_min"] = float(scheduler.energy_left.min())
+    print(json.dumps(out))
     return res
 
 

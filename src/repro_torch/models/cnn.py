@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.phsfl_cnn import CNNConfig
-from repro_torch.models.init_utils import truncated_normal
+from repro_torch.models.init_utils import shape_generator, truncated_normal
 from repro_torch.utils.flops import conv2d_flops, dense_layer_flops
 from repro_torch.utils.prng import fold_in, make_generator
 from repro_torch.utils.tree import tree_map
@@ -42,13 +42,23 @@ from repro_torch.utils.tree import tree_map
 def _conv_init(gen, k, cin, cout, dtype):
     scale = 1.0 / math.sqrt(k * k * cin)
     return {"w": truncated_normal(gen, (k, k, cin, cout), scale, dtype),
-            "b": torch.zeros((cout,), dtype=dtype)}
+            "b": torch.zeros((cout,), dtype=dtype, device=gen.device)}
 
 
 def _fc_init(gen, din, dout, dtype):
     return {"w": truncated_normal(gen, (din, dout), 1.0 / math.sqrt(din),
                                   dtype),
-            "b": torch.zeros((dout,), dtype=dtype)}
+            "b": torch.zeros((dout,), dtype=dtype, device=gen.device)}
+
+
+def _init_tree(g, cfg: CNNConfig, dtype):
+    return {
+        "conv1": _conv_init(g[0], 3, cfg.channels, cfg.conv1_filters, dtype),
+        "conv2": _conv_init(g[1], 3, cfg.conv1_filters, cfg.conv2_filters,
+                            dtype),
+        "fc1": _fc_init(g[2], cfg.flat_dim, cfg.fc_hidden, dtype),
+        "fc2": _fc_init(g[3], cfg.fc_hidden, cfg.num_labels, dtype),  # head
+    }
 
 
 def init(seed: int, cfg: CNNConfig, dtype=torch.float32, device="cpu"):
@@ -59,14 +69,13 @@ def init(seed: int, cfg: CNNConfig, dtype=torch.float32, device="cpu"):
     jax.random's: to start from the reference's weights, carry them across
     with ``repro_torch.convert.params_from_numpy``."""
     g = [make_generator(fold_in(seed, i)) for i in range(4)]
-    params = {
-        "conv1": _conv_init(g[0], 3, cfg.channels, cfg.conv1_filters, dtype),
-        "conv2": _conv_init(g[1], 3, cfg.conv1_filters, cfg.conv2_filters,
-                            dtype),
-        "fc1": _fc_init(g[2], cfg.flat_dim, cfg.fc_hidden, dtype),
-        "fc2": _fc_init(g[3], cfg.fc_hidden, cfg.num_labels, dtype),  # head
-    }
-    return tree_map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), _init_tree(g, cfg, dtype))
+
+
+def param_shapes(cfg: CNNConfig):
+    """``init``'s tree with shapes and dtypes only (meta tensors): what
+    the byte accounting counts, with no weight drawn."""
+    return _init_tree([shape_generator()] * 4, cfg, torch.float32)
 
 
 # PHSFL tree partition.  The cut candidates are the layer boundaries the

@@ -3,6 +3,9 @@
 Every draw happens on its generator's device.  A model at full width
 holds billions of parameters, so the LM path draws them on the card with
 a CUDA generator: drawing on the host and copying would take minutes.
+A ``shape_generator()`` puts the draws on the meta device: the tree then
+has every shape and dtype and holds no values, which is all the byte
+accounting (``core.comm``) needs.
 """
 
 from __future__ import annotations
@@ -10,6 +13,19 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+class _ShapeGenerator(torch.Generator):
+    """A generator whose ``device`` is the meta device: tensors made on
+    it have shapes and no storage, and a draw from it is a no-op."""
+
+    device = torch.device("meta")
+
+
+def shape_generator() -> torch.Generator:
+    """A generator for counting parameters without drawing them (a
+    ``torch.Generator(device="meta")`` cannot be made)."""
+    return _ShapeGenerator()
 
 
 def truncated_normal(gen: torch.Generator, shape, scale,

@@ -164,13 +164,12 @@ def test_entry_point_needs_a_card_or_an_explicit_cpu():
                HierarchyConfig(**H), TrainConfig(**T))
 
 
-def test_later_slices_raise():
-    from repro.configs.base import WirelessConfig
-    with pytest.raises(NotImplementedError, match="wireless slice"):
-        _port_sim(wireless=WirelessConfig(model="rayleigh"))
-    with pytest.raises(NotImplementedError, match="wireless slice"):
-        _port_sim(wireless=WirelessConfig(staleness_lambda=0.5))
-    with pytest.raises(NotImplementedError, match="wireless slice"):
-        _port_sim(population=object())
-    # the ideal network is this slice's own
-    _port_sim(wireless=WirelessConfig(model="ideal"))
+def test_ideal_network_config_is_the_ideal_path():
+    """``WirelessConfig(model="ideal")`` builds no scheduler: the run is
+    the one without a network config, bit for bit."""
+    from repro_torch.configs import WirelessConfig
+    sim = _port_sim(wireless=WirelessConfig(model="ideal"))
+    assert sim.scheduler is None
+    res = sim.run(rounds=1, log_every=1)
+    base = _port_sim().run(rounds=1, log_every=1)
+    assert res.history == base.history and res.network == []
