@@ -10,11 +10,13 @@ serving on xlstm-350m (the same entry point, kernel K3, the chunkwise
 mLSTM) and on recurrentgemma-2b (the same entry point, kernels K4, the
 RG-LRU scan, and K2), and PHSFL training of those LMs
 (``launch/train.py``: K3 on xlstm-350m, K4 and K2 on recurrentgemma-2b),
-and both training paths over the wireless network (the numpy scheduler
+both training paths over the wireless network (the numpy scheduler
 oracle, the float64 cohort core on the card, FedSim's and the launcher's
-network modes: K1 and K3).  Phases, each printing one JSON line (any
-mismatch
-or fault exits non-zero; no phase's failure is caught):
+network modes: K1 and K3), and the telemetry of the CNN path and the
+launcher (traces, metrics, manifests, the kernel probes: K1 and K3) and
+the Genie baseline (``centralized_sgd``).  Phases, each printing one JSON
+line (any mismatch or fault exits non-zero; no phase's failure is
+caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
    it (also printed as a line of its own), torch and CUDA versions;
@@ -75,6 +77,19 @@ or fault exits non-zero; no phase's failure is caught):
    conv2 / fc1, 2 global rounds, then 100 slots sampled from 10**6
    clients over 4 k-means ESs, one round; the deadline the median of the
    oracle's round-0 times; K1's launches against their count;
+   fedsim_telemetry: fedsim_wireless's stale_greedy run (2 rounds) under
+   ``Telemetry(dir, kernels=True)``, counts set to 0 just before and read
+   just after: the trace's client segments of the last round against the
+   scheduler's timeline as exact floats, a track per scheduled client and
+   4 ES tracks, ``sched.participants`` against the rows,
+   ``fedsim.rounds``, K1's probe calls against its launches (312), the
+   manifest naming the card, the four files; rows, clock and history
+   equal to fedsim_wireless's (with telemetry off); the round wall times
+   beside fedsim_wireless's;
+   genie: ``centralized_sgd`` over the CNN cell's pooled data
+   (``CNNConfig()``, batch 32, one epoch): loss and accuracy finite,
+   accuracy above chance; a small config card against CPU within
+   test_torch_fedsim.py's no-codec tolerance, the same accuracy;
 10. reference_serve: ``serve()`` at ``gemma3-12b.reduced(num_layers=12)``
     on the card against the same call on the CPU, same weights and seed:
     the head bank, the logits and the generated tokens;
@@ -116,6 +131,11 @@ or fault exits non-zero; no phase's failure is caught):
 17. time_rglru: K4 at the serving shape, its plain version and its bound;
     K2 at recurrentgemma-2b's attention shape, its plain version, its
     bound and ``scaled_dot_product_attention``;
+    check_probes: each of K1–K4's wrappers once at its main-path shape
+    with a metrics sink: one probed call equal to one launch, the
+    reference's FLOP formula, the operands' and output's bytes, one wall
+    time, the output bit-equal to the unprobed call; the probed wall time
+    beside the time phases' event time;
 18. reference_serve_rglru: ``serve()`` at
     ``recurrentgemma-2b.reduced(num_layers=8)`` on the card against the
     same call on the CPU, same weights and seed;
@@ -149,9 +169,13 @@ or fault exits non-zero; no phase's failure is caught):
     --erasure-prob 0.3`` on the card against the CPU (network keys equal,
     losses and state within K3's 2e-4, the scheduler's state equal), then
     killed and resumed on the card: state files bit-equal;
+    train_telemetry: the same ``main`` with ``--trace-dir``, counts set to
+    0 just before and read just after: its final JSON and losses equal to
+    the run without, K3's probe calls equal to its launches (11), the four
+    files, the ``log.train.*`` gauges;
 24. the kernels line (each kernel's launches on its serving or CNN path,
-    on each training phase as that phase read them, and on the network
-    phases), then
+    on each training phase as that phase read them, on the network
+    phases and the telemetry phases, with each probe's wall time), then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -2496,7 +2520,9 @@ def phase_fedsim_wireless(torch, np, kernels, data):
     schedules in round 0 of the first run with no deadline (on the CPU, at
     this run's byte and compute accounting), so about half finish.  K1's
     launches are counted over both runs against the count computed for
-    them (the network only masks aggregation: every client trains)."""
+    them (the network only masks aggregation: every client trains).
+    Returns the launches and, for fedsim_telemetry, the deadline and each
+    run's rows, clock, history, round wall times and parameter sum."""
     FedSim, CNNConfig, H, T, _, link_codecs = _fedsim_parts()
     from repro_torch.models import cnn
     from repro_torch.wireless.population import Population
@@ -2515,6 +2541,7 @@ def phase_fedsim_wireless(torch, np, kernels, data):
     deadline = float(np.median(rep.times_s[rep.scheduled]))
     del probe
     runs = {}
+    context = {"deadline": deadline, "runs": {}}
     reset_counts(kernels)
     for name, rounds, network, population in (
             ("stale_greedy", 2, dict(chan, deadline_s=deadline,
@@ -2528,17 +2555,24 @@ def phase_fedsim_wireless(torch, np, kernels, data):
                      codecs=codecs, wireless=_wireless_config(network),
                      population=pop, sampling="pareto")
         build_s = time.perf_counter() - t0
-        per_round, rows = [], []
+        per_round, rows, hist = [], [], []
         samples = h.num_clients * t.batch_size * h.kappa0 * h.kappa1 * bpe
         for r in range(1, rounds + 1):
             res, dt = sync_time(torch, lambda: sim.run(rounds=r,
                                                        log_every=1))
             rows += res.network
+            hist.append(res.history[-1])
             per_round.append({"round": r, "wall_s": dt,
                               "samples_per_s": samples / dt,
                               **res.history[-1]})
         runs[name] = {"build_s": build_s, "rounds": per_round,
                       "network": rows, "sim_time_s": res.total_sim_time_s}
+        context["runs"][name] = {
+            "network": rows, "sim_time_s": res.total_sim_time_s,
+            "history": hist, "walls": [p["wall_s"] for p in per_round],
+            "params_sum": float(sum(x.double().sum() for p in
+                                    res.global_params.values()
+                                    for x in p.values()))}
         finite = all(math.isfinite(r[k]) for r in per_round
                      for k in ("train_loss", "test_loss", "test_acc"))
         assert finite, (name, per_round)
@@ -2565,7 +2599,7 @@ def phase_fedsim_wireless(torch, np, kernels, data):
     assert (launches["flash_attention"] == launches["mlstm_chunk"]
             == launches["rglru_scan"] == 0), launches
     assert partial, net
-    return launches
+    return launches, context
 
 
 def phase_train_wireless(torch, np, kernels):
@@ -2653,6 +2687,355 @@ def phase_train_wireless(torch, np, kernels):
     return launches
 
 
+# ------------------------------------------------------------ telemetry ---
+# check_probes: each wrapper's probe at its main-path shape (K1 the CNN
+# cell's cut activations, K2 gemma3's global layer, K3 xlstm's serving
+# shape, K4 recurrentgemma's)
+PROBE_KERNELS = ("quantize", "flash_attention", "mlstm_chunk", "rglru_scan")
+# genie: the Genie baseline's small card-against-CPU config (phase_reference's
+# CNN and data), 2 epochs at batch 8; test_torch_fedsim.py's no-codec
+# tolerance on the loss and the parameters, the same accuracy
+GENIE_SMALL = dict(epochs=2, batch_size=8, learning_rate=0.05)
+GENIE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _probe_calls(torch, fa_ops, ml_ops, ops, rg_ops):
+    """Each probed wrapper's call at its main-path shape, on fixed inputs
+    (K1's uniforms from a generator re-seeded on every call)."""
+    x = torch.randn(MAIN_SHAPE, generator=torch.Generator(
+        device="cuda").manual_seed(11), device="cuda")
+    m = FLASH_MAIN
+    fa = _flash_inputs(torch, m["b"], m["s"], m["h"], m["kvh"], m["d"],
+                       torch.bfloat16, 12)
+    m = MLSTM_MAIN
+    ml = _mlstm_inputs(torch, m["b"], m["s"], m["h"], m["dh"],
+                       torch.bfloat16, 13)
+    m = RGLRU_MAIN
+    rg = _rglru_inputs(torch, m["b"], m["s"], m["w"], torch.float32, 14)
+    b, s, h, _, d = (FLASH_MAIN[k] for k in ("b", "s", "h", "kvh", "d"))
+    mb, ms, mh, mdh = (MLSTM_MAIN[k] for k in ("b", "s", "h", "dh"))
+    return {
+        "quantize": (lambda: ops.quantize_rows(x, torch.Generator(
+            device="cuda").manual_seed(5), bits=8), (x,),
+            4.0 * x.numel()),
+        "flash_attention": (lambda: fa_ops.flash_attention(
+            *fa, causal=True, window=0), fa,
+            4.0 * b * h * s * s * d * 0.5),
+        "mlstm_chunk": (lambda: ml_ops.mlstm_chunk(*ml), ml,
+                        2.0 * mb * mh * ms * ms * mdh),
+        "rglru_scan": (lambda: rg_ops.rglru_scan(*rg), rg,
+                       3.0 * rg[0].numel()),
+    }
+
+
+def phase_check_probes(torch, kernels, fa_ops, ml_ops, ops, rg_ops,
+                       event_ms_of):
+    """The telemetry probe of each kernel wrapper (``kernel.<name>.*``) at
+    its main-path shape with a MetricsRegistry sink: one call, counted
+    once and equal to the kernel's launches over the call; the reference's
+    FLOP formula; the operands' and output's bytes; one wall time; and the
+    output bit-equal to the same call with no sink.  The probed wall time
+    (host clock from wrapper entry to a synchronised result: launch,
+    K1's scale and uniforms, synchronisation) beside the unprobed
+    CUDA-event time of the time* phases."""
+    from repro_torch.telemetry import MetricsRegistry, set_kernel_sink
+    calls = _probe_calls(torch, fa_ops, ml_ops, ops, rg_ops)
+    rows = {}
+    for name in PROBE_KERNELS:
+        fn, operands, flops = calls[name]
+        base = fn()
+        torch.cuda.synchronize()
+        reg = MetricsRegistry()
+        before = read_counts(kernels)
+        set_kernel_sink(reg)
+        try:
+            out = fn()
+        finally:
+            set_kernel_sink(None)
+        after = read_counts(kernels)
+        delta = {k: after[k] - before[k] for k in after}
+        snap = reg.snapshot()
+        k = f"kernel.{name}"
+        nbytes = float(sum(t.nbytes for t in operands) + out.nbytes)
+        row = {"calls": snap[f"{k}.calls"]["value"],
+               "launches": delta[name],
+               "other_launches": {n: v for n, v in delta.items()
+                                  if n != name and v},
+               "flops": snap[f"{k}.flops"]["value"], "flops_expected": flops,
+               "bytes": snap[f"{k}.bytes"]["value"],
+               "bytes_expected": nbytes,
+               "wall_s_count": snap[f"{k}.wall_s"]["count"],
+               "probed_wall_ms": snap[f"{k}.wall_s"]["sum"] * 1e3,
+               "event_ms": event_ms_of[name],
+               "gflops_per_s": snap[f"{k}.gflops_per_s"]["value"],
+               "bit_equal_to_unprobed": bool(torch.equal(out, base))}
+        rows[name] = row
+        del base, out
+    emit({"phase": "check_probes", "kernels": rows,
+          "event_ms_note": "quantize's event time is the kernel call alone "
+                           "(quantize_dequantize); the probe wraps the "
+                           "codec entry quantize_rows (scale, uniforms, "
+                           "kernel)"})
+    for name, row in rows.items():
+        assert row["calls"] == 1 == row["launches"], (name, row)
+        assert not row["other_launches"], (name, row)
+        assert row["flops"] == row["flops_expected"], (name, row)
+        assert row["bytes"] == row["bytes_expected"], (name, row)
+        assert row["wall_s_count"] == 1, (name, row)
+        assert row["bit_equal_to_unprobed"], (name, row)
+    return rows
+
+
+def _history_diff(np, a, b) -> float:
+    """Largest absolute difference of two histories' float entries."""
+    return max(abs(x[k] - y[k]) for x, y in zip(a, b) for k in x
+               if isinstance(x[k], float))
+
+
+def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
+    """``fedsim_wireless``'s stale_greedy run (the CNN at full width, 4 ESs
+    x 25 clients, int8 on all links, greedy cuts, lambda 0.5, the same
+    deadline), 2 global rounds under ``Telemetry(dir, kernels=True)``.
+    The streamed trace against the scheduler's timeline of the last round
+    (exact floats), the instruments against the network rows, K1's probe
+    calls against its launches, the files; the rows, the clock and the
+    history against fedsim_wireless's run with telemetry off (a second
+    run with it off gives the OFF-to-OFF spread if the history does not
+    repeat bit for bit on the card)."""
+    FedSim, CNNConfig, H, T, _, link_codecs = _fedsim_parts()
+    from repro_torch.models import cnn
+    from repro_torch.telemetry import Telemetry
+    cfg = CNNConfig()
+    h = H(num_edge_servers=4, clients_per_es=25, kappa0=5, kappa1=3)
+    t = T(batch_size=32, finetune_steps=10)
+    bpe = 5
+    network = dict(COHORT_BENCH_CHANNEL, cut_policy="greedy",
+                   cut_candidates=cnn.CUT_CANDIDATES,
+                   deadline_s=wireless["deadline"], staleness_lambda=0.5)
+    off = wireless["runs"]["stale_greedy"]
+
+    def run(telemetry):
+        sim = FedSim(cfg, data, h, t, batches_per_epoch=bpe, seed=0,
+                     codecs=link_codecs("int8"),
+                     wireless=_wireless_config(network), telemetry=telemetry)
+        sched, steps = sim.scheduler, []
+        step = sched.step
+
+        def recorded(r):
+            t0 = telemetry.trace.clock_s if telemetry is not None else 0.0
+            rep = step(r)
+            steps.append((t0, rep, sched.last_timeline))
+            return rep
+
+        sched.step = recorded
+        rows, hist, walls = [], [], []
+        for r in (1, 2):
+            res, dt = sync_time(torch, lambda: sim.run(rounds=r, log_every=1))
+            rows += res.network
+            hist.append(res.history[-1])
+            walls.append(dt)
+        psum = float(sum(x.double().sum() for p in res.global_params.values()
+                         for x in p.values()))
+        return rows, hist, walls, res.total_sim_time_s, psum, steps
+
+    with tempfile.TemporaryDirectory() as d:
+        tel = Telemetry(d, kernels=True)
+        reset_counts(kernels)              # count this path's run alone
+        rows, hist, walls, sim_time, psum, steps = run(tel)
+        counts = read_counts(kernels)
+        tel.write_manifest(config=network, seeds={"seed": 0},
+                           extra={"cell": "fedsim_wireless stale_greedy"})
+        tel.close()
+        files = sorted(os.listdir(d))
+        evs = json.load(open(os.path.join(d, "trace.json")))
+        lines = [json.loads(ln)
+                 for ln in open(os.path.join(d, "metrics.jsonl"))]
+        man = json.load(open(os.path.join(d, "manifest.json")))
+    snap = lines[-1]["metrics"]
+    launches = counts["quantize"]
+    # fedsim_wireless's count for its 2 stale_greedy rounds: 2 x (2 x 75 +
+    # 3 x 2) = 312 at the cell's config
+    n_offload = len(cnn.client_keys_for(cnn.DEFAULT_CUT)) * 2
+    steps_ = h.kappa0 * h.kappa1 * bpe
+    expected = 2 * (2 * steps_ + h.kappa1 * n_offload)
+    # the trace's client segments of the last round against its timeline
+    t0, rep, tl = steps[-1]
+    r = int(rep.round_idx)
+    mine = [e for e in evs if e.get("ph") == "X" and e["pid"] == 1
+            and e["args"]["round"] == r]
+    seg_bad, n_seg = [], 0
+    for u in np.flatnonzero(rep.scheduled):
+        got = sorted((e["name"], e["ts"], e["dur"]) for e in mine
+                     if e["tid"] == u)
+        want = []
+        for kind, s_arr, e_arr in (("compute", tl.comp_start[u],
+                                    tl.comp_end[u]),
+                                   ("uplink", tl.tx_start[u], tl.tx_end[u])):
+            for i, (s, e) in enumerate(zip(s_arr, e_arr)):
+                if kind == "uplink" and tl.tx_bits[u, i] <= 0 \
+                        and len(s_arr) > 1:
+                    continue
+                if math.isfinite(s) and math.isfinite(e):
+                    name = kind if len(s_arr) == 1 else f"{kind}[{i}]"
+                    want.append((name, (t0 + float(s)) * 1e6,
+                                 float(e - s) * 1e6))
+        s, e = float(tl.down_start[u]), float(tl.down_end[u])
+        if math.isfinite(s) and math.isfinite(e):
+            want.append(("downlink", (t0 + s) * 1e6, (e - s) * 1e6))
+        n_seg += len(want)
+        if got != sorted(want):
+            seg_bad.append(int(u))
+    client_tracks = {e["tid"] for e in evs
+                     if e["ph"] == "M" and e["pid"] == 1 and "tid" in e}
+    scheduled = set(int(u) for _, rp, _ in steps
+                    for u in np.flatnonzero(rp.scheduled))
+    es_tracks = {e["tid"] for e in evs
+                 if e["ph"] == "M" and e["pid"] == 2 and "tid" in e}
+    history_equal = hist == [row for row in off["history"]]
+    spread = None
+    if not history_equal:
+        rows2, hist2, _, _, psum2, _ = run(None)
+        spread = {"off_vs_off": _history_diff(np, hist2, off["history"]),
+                  "on_vs_off": _history_diff(np, hist, off["history"]),
+                  "params_sum_off_vs_off": abs(psum2 - off["params_sum"]),
+                  "params_sum_on_vs_off": abs(psum - off["params_sum"]),
+                  "rows_equal_off_vs_off": rows2 == off["network"]}
+    emit({"phase": "fedsim_telemetry", "files": files,
+          "trace_events": len(evs), "client_tracks": len(client_tracks),
+          "scheduled_clients": len(scheduled), "es_tracks": sorted(es_tracks),
+          "last_round_segments": n_seg, "segment_mismatch_clients": seg_bad,
+          "sched_participants": snap["sched.participants"]["value"],
+          "rows_participants": sum(x["participants"] for x in rows),
+          "fedsim_rounds": snap["fedsim.rounds"]["value"],
+          "agg_mass_live": snap["fedsim.agg_mass_live"]["value"],
+          "agg_mass_stale": snap.get("fedsim.agg_mass_stale", {}).get(
+              "value"),
+          "quantize_probe_calls": snap["kernel.quantize.calls"]["value"],
+          "quantize_launches": launches, "launches": counts,
+          "quantize_launches_expected": expected,
+          "quantize_probe_wall_s_sum": snap["kernel.quantize.wall_s"]["sum"],
+          "fedsim_round_wall_s": snap["fedsim.round_wall_s"]["sum"],
+          "manifest_device_kind": man["torch"]["device_kind"],
+          "rows_equal": rows == off["network"],
+          "sim_time_equal": sim_time == off["sim_time_s"],
+          "history_equal": history_equal,
+          "params_sum_equal": psum == off["params_sum"],
+          "off_to_off_spread": spread,
+          "round_wall_s_telemetry": walls,
+          "round_wall_s_fedsim_wireless": off["walls"]})
+    assert files == ["manifest.json", "metrics.jsonl", "summary.txt",
+                     "trace.json"], files
+    assert client_tracks == scheduled and len(es_tracks) == 4, (
+        client_tracks, scheduled, es_tracks)
+    assert n_seg > 0 and not seg_bad, seg_bad
+    assert snap["sched.participants"]["value"] == sum(
+        x["participants"] for x in rows)
+    assert snap["fedsim.rounds"]["value"] == 2
+    assert snap["kernel.quantize.calls"]["value"] == launches == expected, (
+        snap["kernel.quantize.calls"], launches, expected)
+    assert man["torch"]["device_kind"] == torch.cuda.get_device_name()
+    assert rows == off["network"] and sim_time == off["sim_time_s"]
+    if spread is not None:
+        # the card's CNN path does not repeat bit for bit: ON must sit
+        # within the run-to-run spread of OFF
+        assert spread["rows_equal_off_vs_off"], spread
+        assert spread["off_vs_off"] > 0, spread
+        assert spread["on_vs_off"] <= 4 * spread["off_vs_off"], spread
+    return counts
+
+
+def phase_train_telemetry(torch, np, kernels):
+    """``launch/train.py``'s ``main`` with train_wireless's flags and
+    ``--trace-dir`` on the card: the final JSON and losses equal to the
+    same ``main`` without it, K3's probe calls equal to its launches, the
+    four files, and the log's ``log.train.*`` gauges."""
+    import io
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import main, parse_args
+    args = parse_args(TRAIN_WIRELESS_FLAGS)
+    n_mlstm = sum(k == MLSTM for k in get_arch(args.arch).reduced()
+                  .layer_kinds())
+    expected = _train_forwards(dict(rounds=args.rounds, clients=args.clients,
+                                    local_steps=args.local_steps)) * n_mlstm
+    flags = ["--device", "cuda", *TRAIN_WIRELESS_FLAGS]
+    outs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, extra in (("on", ["--trace-dir", f"{d}/trace"]),
+                            ("off", [])):
+            buf = io.StringIO()
+            reset_counts(kernels)
+            with contextlib.redirect_stdout(buf):
+                res, dt = sync_time(torch, lambda: main(flags + extra))
+            outs[name] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                          res.losses, dt, read_counts(kernels))
+        files = sorted(os.listdir(f"{d}/trace"))
+        lines = [json.loads(ln) for ln in open(f"{d}/trace/metrics.jsonl")]
+    snap = lines[-1]["metrics"]
+    logs = sorted(k for k in snap if k.startswith("log.train."))
+    (on, on_losses, on_s, counts), (off, off_losses, off_s, _) = (
+        outs["on"], outs["off"])
+    on_launch = counts["mlstm_chunk"]
+    emit({"phase": "train_telemetry", "flags": TRAIN_WIRELESS_FLAGS,
+          "final_on": on, "final_off": off, "final_equal": on == off,
+          "losses_equal": on_losses == off_losses,
+          "mlstm_probe_calls": snap["kernel.mlstm_chunk.calls"]["value"],
+          "mlstm_launches": on_launch, "launches": counts,
+          "mlstm_launches_expected": expected, "files": files,
+          "log_gauges": logs, "metrics_lines": len(lines),
+          "main_s_on": on_s, "main_s_off": off_s})
+    assert on == off and on_losses == off_losses, (on, off)
+    assert snap["kernel.mlstm_chunk.calls"]["value"] == on_launch \
+        == expected, (snap["kernel.mlstm_chunk.calls"], on_launch, expected)
+    assert files == ["manifest.json", "metrics.jsonl", "summary.txt",
+                     "trace.json"], files
+    assert "log.train.loss" in logs and "log.train.participants" in logs
+    return counts
+
+
+def phase_genie(torch, np, data):
+    """The paper's Genie baseline (``centralized_sgd``): SGD over the
+    pooled data of the CNN cell's 100 clients at ``CNNConfig()``, batch
+    32, one epoch, on the card: loss and accuracy finite, accuracy above
+    chance.  Then phase_reference's small CNN and data, card against CPU:
+    the loss and the parameters within test_torch_fedsim.py's no-codec
+    tolerance, the same accuracy."""
+    _, CNNConfig, _, T, make_data, _ = _fedsim_parts()
+    from repro_torch.core.fedsim import centralized_sgd
+    (params, full), secs = sync_time(torch, lambda: centralized_sgd(
+        CNNConfig(), data, T(batch_size=32), epochs=1, seed=0))
+    n_train = int(len(data.dataset.y_train))
+    classes = int(data.dataset.y_test.max()) + 1
+    small_cfg = CNNConfig(image_size=16, conv1_filters=8, conv2_filters=16,
+                          fc_hidden=32)
+    small = make_data(4, 0.5, image_size=16, train_per_class=30,
+                      test_per_class=10, seed=0)
+    tc = T(learning_rate=GENIE_SMALL["learning_rate"],
+           batch_size=GENIE_SMALL["batch_size"])
+    runs = {dev: centralized_sgd(small_cfg, small, tc,
+                                 epochs=GENIE_SMALL["epochs"], seed=0,
+                                 device=dev) for dev in ("cuda", "cpu")}
+    (pc, mc), (pp, mp) = runs["cuda"], runs["cpu"]
+    diff = abs(mc["loss"] - mp["loss"])
+    for k in pp:
+        for n in pp[k]:
+            x, y = pc[k][n].cpu().numpy(), pp[k][n].numpy()
+            np.testing.assert_allclose(x, y, **GENIE_TOL, err_msg=f"{k}/{n}")
+            diff = max(diff, float(np.abs(x - y).max()))
+    emit({"phase": "genie", "config": {
+              "model": "CNNConfig()", "train_images": n_train,
+              "batch": 32, "epochs": 1, "steps": n_train // 32,
+              "lr": T().learning_rate},
+          "acc": full["acc"], "loss": full["loss"], "seconds": secs,
+          "steps_per_s": (n_train // 32) / secs, "chance": 1.0 / classes,
+          "small_cuda": mc, "small_cpu": mp, "small_max_abs_diff": diff,
+          "tol": GENIE_TOL})
+    assert math.isfinite(full["loss"]) and math.isfinite(full["acc"])
+    assert full["acc"] > 1.0 / classes, full
+    np.testing.assert_allclose(mc["loss"], mp["loss"], **GENIE_TOL)
+    assert mc["acc"] == mp["acc"], (mc, mp)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2689,8 +3072,13 @@ def main() -> int:
     phase_check_cohort(torch, np)
     phase_cohort(torch, np)
     phase_reference_wireless(np)
-    wireless_counts = {"fedsim_wireless": phase_fedsim_wireless(
-        torch, np, kernels, data)}
+    wireless_launches_, wireless_run = phase_fedsim_wireless(
+        torch, np, kernels, data)
+    wireless_counts = {"fedsim_wireless": wireless_launches_}
+    telemetry_counts = {"fedsim_telemetry": phase_fedsim_telemetry(
+        torch, np, kernels, data, wireless_run)}
+    del wireless_run
+    phase_genie(torch, np, data)
     del data
     phase_reference_serve(np)
     flash_launches = phase_serve(torch, kernels)
@@ -2703,6 +3091,12 @@ def main() -> int:
     mqa_timing = phase_time_flash(torch, fa_ops, fa_ref, m=FLASH_MQA,
                                   layers={"local": RGLRU_WINDOW},
                                   arch="recurrentgemma-2b")["local"]
+    probes = phase_check_probes(
+        torch, kernels, fa_ops, ml_ops, ops, rg_ops,
+        {"quantize": timing["kernel_ms"],
+         "flash_attention": flash_timing["global"]["kernel_ms"],
+         "mlstm_chunk": mlstm_timing["bfloat16"]["kernel_ms"],
+         "rglru_scan": rglru_timing["kernel_ms"]})
     phase_reference_serve_rglru(torch, np, kernels)
     rglru_launches, rg_flash_launches = phase_serve_rglru(torch, kernels)
     train_counts = {"reference_train": phase_reference_train(torch, np,
@@ -2715,6 +3109,8 @@ def main() -> int:
     phase_resume_train(torch, np)
     wireless_counts["train_wireless"] = phase_train_wireless(torch, np,
                                                              kernels)
+    telemetry_counts["train_telemetry"] = phase_train_telemetry(torch, np,
+                                                                kernels)
 
     def train_launches(name):
         """Each training phase's launches of one kernel, as it read them."""
@@ -2725,6 +3121,15 @@ def main() -> int:
         return {phase: counts[name]
                 for phase, counts in wireless_counts.items()}
 
+    def telemetry(name):
+        """Each telemetry phase's launches of one kernel, and its probe
+        at the main-path shape (check_probes)."""
+        row = probes[name]
+        return {"launches": {phase: counts[name] for phase, counts
+                             in telemetry_counts.items()},
+                "probed_wall_ms": row["probed_wall_ms"],
+                "event_ms": row["event_ms"]}
+
     g, loc = flash_timing["global"], flash_timing["local"]
     mb = mlstm_timing["bfloat16"]
     emit({"kernels": [{
@@ -2733,6 +3138,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/quantize/kernel.py:40",
         "launches": launches, "train_launches": train_launches("quantize"),
         "wireless_launches": wireless_launches("quantize"),
+        "telemetry": telemetry("quantize"),
         "equal": True, "max_abs_err": max_err,
         "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
@@ -2744,6 +3150,7 @@ def main() -> int:
         "launches": flash_launches,
         "train_launches": train_launches("flash_attention"),
         "wireless_launches": wireless_launches("flash_attention"),
+        "telemetry": telemetry("flash_attention"),
         "within_tolerance": True,
         "tolerance": FLASH_TOL, "max_abs_err": flash_err,
         "shape": "global layer: q (6,2048,16,256), k/v (6,2048,8,256) "
@@ -2770,6 +3177,7 @@ def main() -> int:
         "launches": mlstm_launches,
         "train_launches": train_launches("mlstm_chunk"),
         "wireless_launches": wireless_launches("mlstm_chunk"),
+        "telemetry": telemetry("mlstm_chunk"),
         "within_tolerance": True,
         "tolerance": MLSTM_TOL, "max_abs_err": mlstm_err,
         "shape": "q, k, v (6,2048,4,512) bf16, li/lf (6,2048,4) float32",
@@ -2785,6 +3193,7 @@ def main() -> int:
         "launches": rglru_launches,
         "train_launches": train_launches("rglru_scan"),
         "wireless_launches": wireless_launches("rglru_scan"),
+        "telemetry": telemetry("rglru_scan"),
         "within_tolerance": True,
         "tolerance": RGLRU_TOL, "max_abs_err": rglru_err,
         "shape": "log_a, b (6,2048,2560) float32, h0 (6,2560) float32",

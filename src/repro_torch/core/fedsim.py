@@ -30,10 +30,20 @@ samples each round's cohort of training slots from a registered
 ``Population`` through the ``CohortScheduler``, whose decision core runs
 on the simulator's device.  ``save``/``restore`` checkpoint the whole
 state, the scheduler's included, through ``checkpoint/ckpt.py``.
+
+``telemetry=`` (a ``repro_torch.telemetry.Telemetry``, default off)
+registers the reference's ``fedsim.*`` instruments (round wall time,
+rounds, live and stale aggregation mass, the logged losses and accuracy)
+and hands the handle to the scheduler.  Off or on, it changes no number
+of the run.
+
+``centralized_sgd`` is the paper's Genie baseline: plain SGD over the
+pooled dataset.
 """
 
 from __future__ import annotations
 
+import time as _time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -44,6 +54,7 @@ from repro_torch.configs.base import (HierarchyConfig, TrainConfig,
                                       WirelessConfig)
 from repro_torch.configs.phsfl_cnn import CNNConfig
 from repro_torch.core.hierarchy import es_assignment
+from repro_torch.data.loader import batch_iterator
 from repro_torch.data.synthetic import FederatedImageData
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn
@@ -51,7 +62,6 @@ from repro_torch.utils.prng import (draw_seed, fold_in, fold_in_str,
                                     make_generator)
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
-from repro_torch.wireless.scheduler import check_telemetry_off
 
 
 def _unflatten(tree, leaves):
@@ -207,8 +217,13 @@ class FedSim:
         self._codec_seeds = (make_generator(fold_in(seed, 0xC0DEC))
                              if codecs is not None else None)
 
+        # observability (repro_torch.telemetry): FedSim registers its own
+        # fedsim.* instruments (round wall time, eval accuracy, live vs
+        # stale aggregation mass) next to the scheduler's sched.* ones.
+        # None (the default) skips every hook — bit-inert
+        self.telemetry = telemetry
+
         # wireless scenario: channel + participation (None => ideal network)
-        check_telemetry_off(telemetry)
         self.scheduler = None
         if wireless is not None and wireless.model != "ideal":
             self.scheduler = self._make_scheduler(wireless)
@@ -276,6 +291,7 @@ class FedSim:
                   batch_size=self.t.batch_size,
                   batches_per_epoch=self.batches_per_epoch,
                   codecs=self.codecs)
+        extra["telemetry"] = self.telemetry
         if wireless.cut_policy != "fixed" or wireless.cut_candidates:
             table = comm_table_for_cnn(
                 self.cfg, cuts=tuple(wireless.cut_candidates) or None, **kw)
@@ -568,11 +584,18 @@ class FedSim:
     def _per_client(self, mask) -> torch.Tensor:
         return torch.as_tensor(np.asarray(mask, bool), device=self.device)
 
+    def _enabled_telemetry(self):
+        """The telemetry handle when it records, else None."""
+        tel = self.telemetry
+        return tel if tel is not None and getattr(tel, "enabled",
+                                                  False) else None
+
     def _network_edge_round(self, stacked, prev, cohort, res, es_any,
                             parts):
         """One scheduled edge round: the scheduler's report, its network
         row, the stale bank, and the masked (or mapped) aggregation.
         Returns the aggregated replicas."""
+        tel = self._enabled_telemetry()
         rep = self.scheduler.step(self._edge_round)
         self._edge_round += 1
         if cohort is not None:
@@ -618,6 +641,15 @@ class FedSim:
                 stale_w = np.where(
                     deliv, self.staleness_lambda ** rep.stale_delivered, 0.0)
                 stale_tree = self._stale_params
+                if tel is not None:
+                    # pre-normalization aggregation mass the banked
+                    # (discounted) updates contribute next to the live
+                    # participants'
+                    tel.metrics.counter("fedsim.agg_mass_stale").inc(
+                        float(stale_w.sum()))
+            if tel is not None:
+                tel.metrics.counter("fedsim.agg_mass_live").inc(
+                    float(np.asarray(rep.mask).sum()))
             row["stale_banked"] = int(rep.stale_banked.sum())
             row["stale_delivered"] = int(deliv.sum())
             row["stale_dropped"] = int(rep.stale_dropped.sum())
@@ -672,8 +704,10 @@ class FedSim:
         res.total_sim_time_s = self._sim_time
         sched = self.scheduler
         per = None
+        tel = self._enabled_telemetry()
 
         for t2 in range(self._round, rounds):
+            t_wall = _time.perf_counter() if tel is not None else 0.0
             round_losses = []
             es_any = np.zeros(self.B, bool)
             parts = []
@@ -702,6 +736,13 @@ class FedSim:
             self._stacked = stacked
             self._round = t2 + 1
 
+            if tel is not None:
+                if self.device.type == "cuda":
+                    # the round's device work included
+                    torch.cuda.synchronize(self.device)
+                tel.metrics.histogram("fedsim.round_wall_s").observe(
+                    _time.perf_counter() - t_wall)
+                tel.metrics.counter("fedsim.rounds").inc()
             per = None
             if (t2 + 1) % log_every == 0 or t2 == rounds - 1:
                 per = self._per_client_eval(stacked)
@@ -716,6 +757,13 @@ class FedSim:
                     row["mean_participants"] = float(np.mean(parts))
                     row["sim_time_s"] = res.total_sim_time_s
                 res.history.append(row)
+                if tel is not None:
+                    tel.metrics.gauge("fedsim.train_loss").set(
+                        row["train_loss"])
+                    tel.metrics.gauge("fedsim.test_loss").set(
+                        row["test_loss"])
+                    tel.metrics.gauge("fedsim.test_acc").set(row["test_acc"])
+                    tel.flush(step=t2 + 1, force=True)
         res.global_params = tree_map(lambda x: x[0], stacked)
         res.per_client_global = (per if per is not None
                                  else self._per_client_eval(stacked))
@@ -827,3 +875,40 @@ class FedSim:
             stacked = self._head_ft_step(stacked, x, y)
         per = self._per_client_eval(stacked)
         return stacked["fc2"], per
+
+
+# ---------------------------------------------------------------------------
+def centralized_sgd(cfg: CNNConfig, data: FederatedImageData,
+                    tcfg: TrainConfig, epochs: int, seed: int = 0,
+                    device=None):
+    """The paper's Genie baseline: SGD over the pooled dataset.
+
+    Plain SGD at ``tcfg.learning_rate`` over ``batch_iterator``'s
+    epoch-shuffled batches of ``tcfg.batch_size`` (the reference's numpy
+    stream, batch for batch), from ``cnn.init(seed)`` as ``FedSim`` draws
+    it.  Returns ``(params, {"acc", "loss"})`` on the whole test set,
+    computed as the reference computes them: the logits' log-softmax on
+    the device, the label gather and the means in numpy.  ``device=None``
+    means the card; pass ``device="cpu"`` to run on the CPU."""
+    dev = resolve_device(device)
+    ds = data.dataset
+    params = cnn.init(seed, cfg, device=dev)
+    lr = tcfg.learning_rate
+    for x, y in batch_iterator(ds.x_train, ds.y_train, tcfg.batch_size,
+                               seed=seed, epochs=epochs):
+        p = _trainable(params)
+        with torch.enable_grad():
+            loss = cnn.loss_fn(p, torch.from_numpy(x).to(dev),
+                               torch.from_numpy(y).to(dev))
+            g = torch.autograd.grad(loss, tree_leaves(p))
+        with torch.no_grad():
+            params = tree_map(lambda w, gg: w.detach() - lr * gg, params,
+                              _unflatten(p, g))
+    with torch.no_grad():
+        logits = cnn.apply(params, torch.from_numpy(ds.x_test).to(dev))
+        logp = torch.log_softmax(logits, dim=-1).cpu().numpy()
+        pred = logits.argmax(-1).cpu().numpy()
+    acc = float((pred == ds.y_test).mean())
+    loss = float(-np.take_along_axis(logp, ds.y_test[:, None].astype(np.int64),
+                                     axis=1).mean())
+    return params, {"acc": acc, "loss": loss}

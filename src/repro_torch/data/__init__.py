@@ -1,4 +1,5 @@
 from repro_torch.data.dirichlet import dirichlet_partition
+from repro_torch.data.loader import ClientLoader, batch_iterator
 from repro_torch.data.synthetic import (
     FederatedImageData,
     SyntheticImageDataset,
@@ -8,6 +9,8 @@ from repro_torch.data.synthetic import (
 )
 
 __all__ = [
+    "ClientLoader",
+    "batch_iterator",
     "dirichlet_partition",
     "FederatedImageData",
     "SyntheticImageDataset",

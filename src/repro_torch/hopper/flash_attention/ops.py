@@ -12,7 +12,10 @@ keys its rows can see, so it never holds (B, H, S, S) logits.
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``, head-major, so the CPU path transposes around it), a CUDA
 tensor launches the Hopper kernel (``kernel.py``) or raises.  There is no
-fallback from the kernel to the plain version.
+fallback from the kernel to the plain version.  A ``meta`` tensor (shapes
+only, no data) goes through the plain version's shapes; nothing is
+launched.  The wrapper carries the telemetry probe
+(``kernel.flash_attention.*``, ``repro_torch.telemetry.kernels``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from repro_torch.hopper.flash_attention import kernel
 from repro_torch.hopper.flash_attention.ref import attention_ref
 from repro_torch.hopper.tma import kernel_layout
+from repro_torch.telemetry.kernels import kernel_probe
 
 
 def _check(q, k, v, window):
@@ -51,7 +55,7 @@ def _check(q, k, v, window):
 
 
 def _forward(q, k, v, causal, window, softcap):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             softcap=softcap)
@@ -126,4 +130,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,S,H,d); k,v: (B,S,KVH,d) — the model-zoo layout.  Returns
     (B,S,H,d) in q's dtype."""
     _check(q, k, v, window)
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    probe = kernel_probe("flash_attention")
+    out = _FlashAttention.apply(q, k, v, causal, window, softcap)
+    if probe is not None:
+        B, S, H, d = q.shape
+        kv = min(window, S) if window else S
+        # QK^T and PV matmuls, 2 FLOPs/MAC; causal halves the rectangle
+        flops = 4.0 * B * H * S * kv * d * (0.5 if causal and not window
+                                            else 1.0)
+        probe.finish(out, flops=flops, arrays=(q, k, v))
+    return out

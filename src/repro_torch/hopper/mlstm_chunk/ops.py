@@ -8,7 +8,10 @@ reference's custom VJP does (the JAX package has no backward kernel).
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``, in the same layout), a CUDA tensor launches the Hopper
 kernel (``kernel.py``) or raises.  There is no fallback from the kernel
-to the plain version.
+to the plain version.  A ``meta`` tensor (shapes only, no data) goes
+through the plain version's shapes; nothing is launched.  The wrapper
+carries the telemetry probe (``kernel.mlstm_chunk.*``,
+``repro_torch.telemetry.kernels``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from repro_torch.hopper.mlstm_chunk import kernel
 from repro_torch.hopper.mlstm_chunk.ref import KERNEL_CHUNK, mlstm_chunkwise
 from repro_torch.hopper.tma import kernel_layout
+from repro_torch.telemetry.kernels import kernel_probe
 
 
 def _check(q, k, v, li, lf):
@@ -53,7 +57,7 @@ def _plain(q, k, v, li, lf):
 
 
 def _forward(q, k, v, li, lf):
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return _plain(q, k, v, li, lf)
     if q.device.type == "cuda":
         # the last dimension contiguous and, in bf16, the layout K2's TMA
@@ -81,4 +85,12 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v: (B,S,H,dh); li, lf: (B,S,H) float32 log input/forget
     gates — the model's layout.  Returns h (B,S,H,dh) in q's dtype."""
     _check(q, k, v, li, lf)
-    return _MlstmChunk.apply(q, k, v, li, lf)
+    probe = kernel_probe("mlstm_chunk")
+    out = _MlstmChunk.apply(q, k, v, li, lf)
+    if probe is not None:
+        B, S, H, dh = q.shape
+        # intra-chunk QK^T + PV (causal halves) at 2 FLOPs/MAC: the
+        # reference's 2 B S^2 d over its leading (B, H)
+        probe.finish(out, flops=2.0 * B * H * S * S * dh,
+                     arrays=(q, k, v, li, lf))
+    return out

@@ -8,7 +8,13 @@ transparent to autograd (its true derivative is 0 almost everywhere).
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor launches the Hopper kernel (``kernel.py``) or
-raises.  There is no fallback from the kernel to the plain version.
+raises.  There is no fallback from the kernel to the plain version.  A
+``meta`` tensor (shapes only, no data) goes through the plain version's
+shapes; nothing is launched.
+
+``quantize_rows``, the codec entry, carries the telemetry probe
+(``kernel.quantize.*``, ``repro_torch.telemetry.kernels``), as the
+reference's ``quantize_dequantize`` does.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.hopper.quantize import kernel
 from repro_torch.hopper.quantize.ref import quantize_dequantize_ref
+from repro_torch.telemetry.kernels import kernel_probe
 
 
 def tensor_scale(x: torch.Tensor, qmax: int) -> torch.Tensor:
@@ -42,7 +49,7 @@ def _check(x, u, scale):
 
 
 def _forward(x, u, scale, qmax):
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return quantize_dequantize_ref(x, u, scale, qmax)
     if x.device.type == "cuda":
         return kernel.quantize_dequantize_cuda(x, u, scale, qmax)
@@ -76,6 +83,7 @@ def quantize_rows(x: torch.Tensor, generator: torch.Generator | None, *,
 
     ``generator`` (on x's device) draws the stochastic-rounding uniforms;
     it is unused when ``stochastic=False``, which rounds half-up."""
+    probe = kernel_probe("quantize")
     qmax = 2 ** (bits - 1) - 1
     x2 = x.reshape(x.shape[0], -1).contiguous()
     if stochastic:
@@ -83,5 +91,9 @@ def quantize_rows(x: torch.Tensor, generator: torch.Generator | None, *,
                        device=x.device)
     else:
         u = torch.full(x2.shape, 0.5, dtype=torch.float32, device=x.device)
-    return quantize_dequantize(x2, u, tensor_scale(x2, qmax),
-                               qmax).reshape(x.shape)
+    out = quantize_dequantize(x2, u, tensor_scale(x2, qmax),
+                              qmax).reshape(x.shape)
+    if probe is not None:
+        # scale + round + clip + dequant per element
+        probe.finish(out, flops=4.0 * x.numel(), arrays=(x,))
+    return out

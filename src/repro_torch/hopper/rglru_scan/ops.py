@@ -7,7 +7,10 @@ package has no backward kernel).
 
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor launches the Hopper kernel (``kernel.py``) or
-raises.  There is no fallback from the kernel to the plain version.
+raises.  There is no fallback from the kernel to the plain version.  A
+``meta`` tensor (shapes only, no data) goes through the plain version's
+shapes; nothing is launched.  The wrapper carries the telemetry probe
+(``kernel.rglru_scan.*``, ``repro_torch.telemetry.kernels``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.hopper.rglru_scan import kernel
 from repro_torch.hopper.rglru_scan.ref import rglru_scan_ref
+from repro_torch.telemetry.kernels import kernel_probe
 
 
 def _check(log_a, b, h0):
@@ -43,7 +47,7 @@ def _check(log_a, b, h0):
 
 
 def _forward(log_a, b, h0):
-    if log_a.device.type == "cpu":
+    if log_a.device.type in ("cpu", "meta"):
         return rglru_scan_ref(log_a, b, h0)
     if log_a.device.type == "cuda":
         log_a, b, h0 = (t if t.stride(-1) == 1 else t.contiguous()
@@ -70,4 +74,9 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor,
     """log_a, b: (B,S,W) float32 or bfloat16; h0: (B,W) float32.  Returns
     h (B,S,W) in log_a's dtype, h_t = exp(log_a_t) h_{t-1} + b_t."""
     _check(log_a, b, h0)
-    return _RglruScan.apply(log_a, b, h0)
+    probe = kernel_probe("rglru_scan")
+    out = _RglruScan.apply(log_a, b, h0)
+    if probe is not None:
+        # exp + multiply-accumulate per element of the scanned sequence
+        probe.finish(out, flops=3.0 * log_a.numel(), arrays=(log_a, b, h0))
+    return out

@@ -19,9 +19,13 @@ scheduler's state joins the state checkpoint, so ``--resume`` replays the
 exact fault schedule.  ``--population N`` samples each round's cohort of
 ``--clients`` training slots from N registered clients through the
 ``CohortScheduler``, whose decision core runs on the training device.
-Telemetry (``--trace-dir``) comes with a later slice and raises
-``NotImplementedError``.  The mesh round waits for the mesh slice: every
-run takes the reference's one-device path, ``make_host_round``.
+``--trace-dir OUT`` turns telemetry on (``repro_torch.telemetry``): the
+scheduler's Perfetto trace (``trace.json``) and metrics
+(``metrics.jsonl``), the kernel probes and the log's ``log.train.*``
+gauges, a run manifest (``manifest.json``) and a summary table
+(``summary.txt``); every number of the run stays as it is without it.
+The mesh round waits for the mesh slice: every run takes the reference's
+one-device path, ``make_host_round``.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from repro_torch.core.phsfl import (build_optimizer, make_host_round,
 from repro_torch.data.synthetic import synthetic_token_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.telemetry import MetricLogger
+from repro_torch.telemetry import MetricLogger, Telemetry
 from repro_torch.utils.prng import make_generator
 from repro_torch.utils.tree import tree_map
 
@@ -260,14 +264,16 @@ def _personalize(res: TrainResult, model, cfg, tcfg, C, micro, seq, dev,
 def build_scheduler(cfg: ModelConfig, wcfg: WirelessConfig, *,
                     clients: int, seq: int, rounds: int, local_steps: int,
                     micro: int, codecs=None, population: int = 0,
-                    sampling: str = "uniform", seed: int = 0, device=None):
+                    sampling: str = "uniform", seed: int = 0, device=None,
+                    telemetry=None):
     """The reference's wireless scheduler of ``main``: the LM's byte
     accounting (``comm_for_lm``, or ``comm_table_for_lm`` over
     ``wcfg.cut_candidates`` when the cut policy adapts) priced by
     ``make_scheduler`` for ``clients`` clients on one ES, or, with
     ``population`` > 0, a ``CohortScheduler`` on ``device`` over that many
     registered clients (seeded ``seed``) that samples ``clients`` of them
-    a round."""
+    a round.  ``telemetry`` (default off) records every round's trace and
+    scheduler metrics."""
     from repro_torch.core.comm import comm_for_lm, comm_table_for_lm
     from repro_torch.wireless import make_scheduler
     comm_kw = dict(seq_len=seq, dataset_size=rounds * local_steps * micro,
@@ -283,6 +289,7 @@ def build_scheduler(cfg: ModelConfig, wcfg: WirelessConfig, *,
     else:
         sched_u, es_assign = clients, es_assignment(clients, clients)
         extra = {}
+    extra["telemetry"] = telemetry
     candidates = tuple(wcfg.cut_candidates)
     if wcfg.cut_policy != "fixed" or candidates:
         table = comm_table_for_lm(
@@ -414,13 +421,18 @@ def parse_args(argv=None):
                     help="override the uniform quantizer's bit width")
     ap.add_argument("--topk-frac", type=float, default=0.05,
                     help="kept fraction for --codec topk")
-    # ---- observability (a later slice of the port) ----
+    # ---- observability (repro_torch.telemetry) ----
     ap.add_argument("--trace-dir", default=None,
-                    help="telemetry output directory (a later slice of the "
-                         "port: raises)")
+                    help="write telemetry into this directory: a streamed "
+                         "Chrome/Perfetto trace of every wireless round "
+                         "(trace.json — open at https://ui.perfetto.dev), "
+                         "typed metrics snapshots (metrics.jsonl), a run "
+                         "manifest (manifest.json), and a run-end summary "
+                         "table (summary.txt).  Default: telemetry off, "
+                         "bit-identical to a run without it")
     ap.add_argument("--metrics-every", type=int, default=1,
-                    help="metrics snapshot period in rounds (with "
-                         "--trace-dir)")
+                    help="flush a metrics.jsonl snapshot every N rounds "
+                         "(with --trace-dir)")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
@@ -434,11 +446,11 @@ def parse_args(argv=None):
     return args
 
 
-def scheduler_from_args(cfg: ModelConfig, args, device=None):
+def scheduler_from_args(cfg: ModelConfig, args, device=None, telemetry=None):
     """The wireless scheduler ``main`` builds from its flags (None on the
     ideal network): the reference's ``WirelessConfig`` of the flags (the
     downlink at 4x the uplink), their codec, and :func:`build_scheduler`
-    on ``device``."""
+    on ``device``, recording into ``telemetry`` (default off)."""
     if args.channel == "ideal":
         return None
     from repro_torch.compress import link_codecs
@@ -468,24 +480,27 @@ def scheduler_from_args(cfg: ModelConfig, args, device=None):
         cfg, wcfg, clients=args.clients, seq=args.seq, rounds=args.rounds,
         local_steps=args.local_steps, micro=args.micro, codecs=codecs,
         population=args.population, sampling=args.sampling,
-        seed=args.seed, device=resolve_device(device))
+        seed=args.seed, device=resolve_device(device), telemetry=telemetry)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.trace_dir:
-        raise NotImplementedError("telemetry (--trace-dir) comes with a "
-                                  "later slice of the port (ROADMAP.md §1 "
-                                  "item 5)")
+    tel = (Telemetry(args.trace_dir, metrics_every=args.metrics_every,
+                     kernels=True)
+           if args.trace_dir else Telemetry.disabled())
+    log = MetricLogger("train", telemetry=tel)
     cfg = get_arch(args.arch).reduced()
-    scheduler = scheduler_from_args(cfg, args, args.device)
+    scheduler = scheduler_from_args(cfg, args, args.device, telemetry=tel)
+    tel.write_manifest(config=vars(args), seeds={"seed": args.seed},
+                       extra={"arch": args.arch, "clients": args.clients})
     res = train(cfg, rounds=args.rounds, clients=args.clients,
                 local_steps=args.local_steps, micro=args.micro,
                 seq=args.seq, lr=args.lr, hsfl=args.hsfl,
                 finetune_steps=args.finetune_steps, seed=args.seed,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                 resume=args.resume, abort_after=args.abort_after,
-                device=args.device, scheduler=scheduler)
+                device=args.device, log=log, scheduler=scheduler)
+    tel.close()
     if res.aborted_after is not None:
         print(json.dumps({"aborted_after_round": res.aborted_after}))
         return res

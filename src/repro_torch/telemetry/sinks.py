@@ -1,8 +1,19 @@
-"""Line-oriented metric sinks (``repro.telemetry.sinks``, without its
-mirror into the telemetry metrics registry, which the port has not yet).
+"""Line-oriented metric sinks (the home of the old ``utils.logging``).
 
-:class:`MetricLogger` prints ``[name] {json}`` lines; values keep their
-JSON-native types (ints stay ints, bools stay bools, lists stay lists).
+The port's copy of ``repro.telemetry.sinks``.
+
+:class:`MetricLogger` is the repo's one-line-per-step stdout logger,
+folded into the telemetry subsystem: it still prints ``[name] {json}``
+lines, but values now keep their JSON-native types (ints stay ints, bools
+stay bools, lists stay lists — the old implementation coerced everything
+non-float through ``str``, silently stringifying structured values in the
+JSONL output), and an optional ``telemetry=`` mirror forwards numeric
+values into the run's
+:class:`~repro_torch.telemetry.metrics.MetricsRegistry`
+as ``log.<name>.<key>`` gauges, so ad-hoc launcher logs land in the same
+``metrics.jsonl`` as the structured instruments.
+
+``repro_torch.utils.logging`` is a thin import shim for old call sites.
 """
 
 from __future__ import annotations
@@ -38,9 +49,10 @@ def json_safe(v):
 class MetricLogger:
     """Tiny structured logger (stdout, no deps)."""
 
-    def __init__(self, name: str = "repro", stream=None):
+    def __init__(self, name: str = "repro", stream=None, telemetry=None):
         self.name = name
         self.stream = stream or sys.stdout
+        self.telemetry = telemetry
         self._t0 = time.time()
 
     def log(self, step: int | None = None, **metrics):
@@ -51,4 +63,9 @@ class MetricLogger:
             rec[k] = json_safe(v)
         print(f"[{self.name}] " + json.dumps(rec), file=self.stream,
               flush=True)
+        tel = self.telemetry
+        if tel is not None and getattr(tel, "enabled", False):
+            for k, v in rec.items():
+                if k != "t" and isinstance(v, (bool, int, float)):
+                    tel.metrics.gauge(f"log.{self.name}.{k}").set(float(v))
         return rec

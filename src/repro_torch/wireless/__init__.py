@@ -1,10 +1,10 @@
 """Wireless channel + client-participation subsystem.
 
-The PyTorch port of ``repro_torch.wireless``: the numpy oracle (channel,
-cutter, device, faults, timeline, scheduler) is the reference's, re-homed;
-the population-scale decision core (``scheduler_core``, ``population``)
-is float64 torch tensor code on a device.  Telemetry is a later slice of
-the port: every ``telemetry`` parameter takes None only.
+The PyTorch port of ``repro.wireless``: the numpy oracle (channel,
+cutter, device, faults, timeline, scheduler) is the reference's, re-homed,
+with its telemetry hooks (``repro_torch.telemetry``); the
+population-scale decision core (``scheduler_core``, ``population``) is
+float64 torch tensor code on a device.
 
 Turns the ideal-network PHSFL simulator into a network-aware one: every
 client gets a per-edge-round uplink/downlink rate, latency, and energy
@@ -208,10 +208,23 @@ Population & cohorts (``repro_torch.wireless.population``):
   channel and ``staleness_lambda == 0`` (the stale bank keys by client
   identity, which cohort slots remap per round).
 
-Observability: the reference's ``telemetry=`` handle (Perfetto traces
-and typed metrics of every round) is a later slice of the port
-(ROADMAP.md §1 item 5).  Every ``telemetry`` parameter defaults to None,
-the OFF state, and any other value raises ``NotImplementedError``.
+Observability (``repro_torch.telemetry``):
+
+- ``make_scheduler(..., telemetry=)`` / ``ParticipationScheduler(...,
+  telemetry=)`` / ``FedSim(..., telemetry=)`` accept a
+  :class:`repro_torch.telemetry.Telemetry` handle.  When enabled, every
+  ``step()`` exports the round's :class:`RoundTimeline` — compute chunks,
+  uplink payloads with their individual HARQ retransmission attempts,
+  downlink, crash instants, ES outage spans — as Chrome/Perfetto trace
+  events (one track per client and per ES; open the file at
+  https://ui.perfetto.dev), and updates a typed metrics registry
+  (participation, withdrawals/backfills, goodput vs retransmit bits,
+  stale-bank depth/age, per-phase energy) flushed as JSONL.
+  ``launch/train.py --trace-dir OUT`` wires all of it plus a run manifest.
+- The default (``telemetry=None``) is the OFF state and is bit-inert: the
+  hooks read the report and timeline, never scheduler state, draw no RNG,
+  and are skipped entirely — the golden-history test and the
+  ``telemetry-off-default`` reprolint rule pin this.
 
 Aggregation semantics under a partial mask: participating clients keep
 their Eq. 4/6 weights, renormalized to sum to 1; an edge round with ZERO
@@ -259,8 +272,9 @@ def make_scheduler(cfg, num_clients: int, comm=None, kappa0: int = 1, *,
     shared-uplink contention (default: all clients on one ES).  A
     :class:`DeviceModel` built from the same config prices client compute
     alongside the bits (free when ``compute_gflops`` is inf).
-    ``telemetry`` must stay None (a later slice of the port).  ``cls``
-    swaps the scheduler class (``repro_torch.wireless.population.
+    ``telemetry`` (a :class:`repro_torch.telemetry.Telemetry`, default
+    off) makes the scheduler record every round's trace and metrics.
+    ``cls`` swaps the scheduler class (``repro_torch.wireless.population.
     CohortScheduler`` uses it, forwarding its population knobs and
     ``core_device`` through ``extra``); the default is
     :class:`ParticipationScheduler`, byte-for-byte.

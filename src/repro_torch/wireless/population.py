@@ -40,7 +40,10 @@ Scale: the per-round cost is two device stages over (N,) tensors plus
 an O(N) host step: the selection gate, the report's copies and its numpy
 totals.  Budgets stay numpy on the host between rounds, the state both
 paths share; each round copies them in with the round's fading draws.
-Telemetry is a later slice of the port, so ``last_timeline`` stays None.
+The telemetry trace exporter (which materializes per-client event
+segments) is priced accordingly: with telemetry enabled the round builds
+the host timeline from the stages' outputs and records it; without it
+(the default) ``last_timeline`` stays None.
 """
 
 from __future__ import annotations
@@ -233,6 +236,10 @@ class CohortScheduler(ParticipationScheduler):
     oracle's ``cohort_mask`` semantics.  ``sample_cohort()`` may be called
     ahead of ``step()`` (FedSim does, to know which clients to train);
     otherwise ``step()`` samples on entry.
+
+    ``last_timeline`` is populated only when telemetry is enabled: the
+    explicit per-client event timeline is O(N x chunks) host memory, which
+    is precisely the cost this class exists to avoid.
     """
 
     def __init__(self, cfg: WirelessConfig, channel, bits=None, *,
@@ -361,6 +368,7 @@ class CohortScheduler(ParticipationScheduler):
 
         out = stage_b(scheduled)
         sched = out[4].cpu().numpy()
+        n_backfilled = 0
         if (spec.contend and cfg.selection == "topk" and cfg.topk > 0
                 and int(sched.sum()) < cfg.topk):
             # topk backfill (single pass): promote the next-fastest
@@ -376,8 +384,10 @@ class CohortScheduler(ParticipationScheduler):
                 if extra.any():
                     out = stage_b(sched | extra)
                     sched = out[4].cpu().numpy()
-        (eff, cuts, comp_s, times, _, _, alive, energy_after, moved_up,
-         moved_down, compute_j, _, _) = (o.cpu().numpy() for o in out)
+                    n_backfilled = int((sched & extra).sum())
+        (eff, cuts, comp_s, times, _, withdrawn, alive, energy_after,
+         moved_up, moved_down, compute_j, tx_s, _) = (o.cpu().numpy()
+                                                      for o in out)
 
         self.energy_left = energy_after
         if not alive.any():
@@ -420,20 +430,42 @@ class CohortScheduler(ParticipationScheduler):
                   if es_down is not None
                   and not np.array_equal(self._es_eff, self.es_assign)
                   else None)
+        rep = RoundReport(round_idx=round_idx, mask=alive.astype(np.float64),
+                          times_s=times, round_time_s=round_time,
+                          energy_left_j=self.energy_left.copy(),
+                          scheduled=sched.copy(), cuts=rep_cuts,
+                          uplink_bps=eff.copy(), codecs=rep_codecs,
+                          bits_tx=bits_tx,
+                          compute_s=comp_s.copy(), compute_j=compute_j,
+                          stale_banked=stale_banked,
+                          stale_delivered=stale_delivered,
+                          stale_dropped=stale_dropped,
+                          es_down=None if es_down is None
+                          else es_down.copy(),
+                          es_map=es_map)
         self.last_timeline = None
-        return RoundReport(round_idx=round_idx, mask=alive.astype(np.float64),
-                           times_s=times, round_time_s=round_time,
-                           energy_left_j=self.energy_left.copy(),
-                           scheduled=sched.copy(), cuts=rep_cuts,
-                           uplink_bps=eff.copy(), codecs=rep_codecs,
-                           bits_tx=bits_tx,
-                           compute_s=comp_s.copy(), compute_j=compute_j,
-                           stale_banked=stale_banked,
-                           stale_delivered=stale_delivered,
-                           stale_dropped=stale_dropped,
-                           es_down=None if es_down is None
-                           else es_down.copy(),
-                           es_map=es_map)
+        tel = self.telemetry
+        if tel is not None and getattr(tel, "enabled", False):
+            # observability opts back into the explicit event timeline
+            # (O(N x chunks) host arrays — the price of a full trace)
+            from repro_torch.wireless.timeline import build_timeline
+            bits = (self.cutter.bits_for(cuts) if self.cutter is not None
+                    else self.bits)
+            tl = build_timeline(
+                LinkState(eff, down.cpu().numpy(), latency.cpu().numpy()),
+                bits, comp_s, cfg.deadline_s, U, pipeline=cfg.pipeline)
+            self.last_timeline = tl
+            has_bank = self._stale_age >= 0
+            tel.record_round(
+                rep, tl, es_assign=self._es_eff,
+                deadline_s=float(cfg.deadline_s),
+                withdrawn=int(withdrawn.sum()),
+                backfilled=n_backfilled,
+                tx_j=float(cfg.tx_power_w * tx_s[sched].sum()),
+                bank_depth=int(has_bank.sum()),
+                bank_age_max=(int(self._stale_age[has_bank].max())
+                              if has_bank.any() else 0))
+        return rep
 
     # ------------------------------------------------------ checkpointing --
     def state_dict(self) -> dict:

@@ -171,9 +171,8 @@ None otherwise) restricts gate 1 to a sampled cohort; the default None
 leaves this class's behavior byte-for-byte unchanged.
 
 The port's copy of ``repro.wireless.scheduler``: numpy, as in the
-reference, with its imports pointed at the port.  Telemetry (the
-reference's trace and metrics hooks) is a later slice of the port: a
-``telemetry`` other than None raises.
+reference, with its imports pointed at the port, its telemetry hook
+(``repro_torch.telemetry``) included.
 """
 
 from __future__ import annotations
@@ -292,14 +291,6 @@ class RoundReport:
         return cls(**kw)
 
 
-def check_telemetry_off(telemetry=None) -> None:
-    """Raise unless ``telemetry`` is None: the port has no telemetry yet."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "wireless telemetry (trace and metrics) comes with a later "
-            "slice of the port (ROADMAP.md §1 item 5); pass telemetry=None")
-
-
 class ParticipationScheduler:
     """Stateful per-edge-round participation decisions for U clients."""
 
@@ -348,11 +339,11 @@ class ParticipationScheduler:
                 int(self.es_assign.max()) + 1, cfg.seed)
         self._plan = None                  # this round's FaultPlan (or None)
         self._es_eff = self.es_assign      # effective ES map after failover
-        # observability: the reference's read-only trace/metrics observer
-        # is a later slice of the port; None (the default, enforced by
-        # reprolint's telemetry-off-default) is the only value taken
-        check_telemetry_off(telemetry)
-        self.telemetry = None
+        # observability (repro_torch.telemetry): a purely-read-only
+        # observer of each round's report + timeline.  None (the default,
+        # enforced by reprolint's telemetry-off-default) skips every hook —
+        # no file I/O, no RNG, no arithmetic on scheduler state
+        self.telemetry = telemetry
         self.last_timeline = None          # the most recent step's timeline
         # cohort restriction (population-scale runs): a (U,) bool mask
         # ANDed into gate 1 each round, so only the sampled cohort can be
@@ -480,6 +471,7 @@ class ParticipationScheduler:
         (link, bits, cuts, comp_s, tl, scheduled, withdrawn,
          contended) = self._contend(private, scheduled, bits, cuts, comp_s,
                                     tl)
+        n_backfilled = 0
         if (contended and cfg.selection == "topk" and cfg.topk > 0
                 and int(scheduled.sum()) < cfg.topk):
             # topk BACKFILL (single pass, see module docstring): promote the
@@ -495,6 +487,7 @@ class ParticipationScheduler:
                     (link, bits, cuts, comp_s, tl, scheduled, withdrawn,
                      _) = self._contend(private, scheduled | extra, bits0,
                                         cuts0, comp0, tl0)
+                    n_backfilled = int((scheduled & extra).sum())
         times = tl.times_s
         charge = tl.charge_j(cfg.tx_power_w, cfg.compute_power_w)
 
@@ -629,6 +622,18 @@ class ParticipationScheduler:
                           else es_down.copy(),
                           es_map=es_map, retx_bits=retx_bits, retx_j=retx_j)
         self.last_timeline = tl
+        tel = self.telemetry
+        if tel is not None and getattr(tel, "enabled", False):
+            has_bank = self._stale_age >= 0
+            tel.record_round(
+                rep, tl, es_assign=self._es_eff,
+                deadline_s=float(cfg.deadline_s),
+                withdrawn=int(withdrawn.sum()),
+                backfilled=n_backfilled,
+                tx_j=float(cfg.tx_power_w * tl.tx_charged_s[scheduled].sum()),
+                bank_depth=int(has_bank.sum()),
+                bank_age_max=(int(self._stale_age[has_bank].max())
+                              if has_bank.any() else 0))
         return rep
 
     def _stale_update(self, private: LinkState, scheduled, alive, up,

@@ -17,6 +17,14 @@ Network rows come from the same numpy streams and must be EQUAL; losses,
 accuracies and parameters agree within ``test_torch_fedsim.py``'s
 no-codec tolerance.  The port's ``save``/``restore`` resumes a run bit
 for bit, the scheduler's state and the stale bank included.
+
+The reference runs record into an in-memory ``Telemetry``: the port's
+``fedsim.*`` and ``sched.*`` instruments under ``FedSim(telemetry=)``
+equal the reference's, the loss gauges within the same tolerance.  The
+reference's telemetry is not bit-inert under the stale fold (R5 in
+ROADMAP.md: with telemetry on, an ES whose only update this global round
+was a stale delivery joins the global average), so its ``stale`` run is
+made with telemetry off and a second one records the instruments.
 """
 
 import numpy as np
@@ -29,6 +37,7 @@ from repro_torch.configs import (CNNConfig, FaultConfig, HierarchyConfig,
                                  TrainConfig, WirelessConfig)
 from repro_torch.core.fedsim import FedSim
 from repro_torch.data.synthetic import make_federated_image_data
+from repro_torch.telemetry import Telemetry
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.wireless.population import Population
 
@@ -64,13 +73,14 @@ def _wireless(name, wireless_cls, fault_cls):
     return wireless_cls(**kw)
 
 
-def _port_sim(name, population=None):
+def _port_sim(name, population=None, telemetry=None):
     return FedSim(CNNConfig(**SMALL), make_federated_image_data(4, 0.5,
                                                                 **DATA),
                   HierarchyConfig(**H), TrainConfig(**T),
                   batches_per_epoch=2, seed=0,
                   wireless=_wireless(name, WirelessConfig, FaultConfig),
-                  population=population, sampling="rate", device="cpu")
+                  population=population, sampling="rate", device="cpu",
+                  telemetry=telemetry)
 
 
 def _reference_run(name):
@@ -82,15 +92,23 @@ def _reference_run(name):
     from repro.configs.phsfl_cnn import CNNConfig as JC
     from repro.core.fedsim import FedSim as JFedSim
     from repro.data.synthetic import make_federated_image_data as j_data
+    from repro.telemetry import Telemetry as JTelemetry
     from repro.wireless.population import Population as JPopulation
-    pop = JPopulation(64, **POPULATION) if name == "population" else None
-    sim = JFedSim(JC(**SMALL), j_data(4, 0.5, **DATA), JH(**H), JT(**T),
-                  batches_per_epoch=2, seed=0,
-                  wireless=_wireless(name, JW, JF), population=pop,
-                  sampling="rate")
+
+    def build(telemetry=None):
+        pop = JPopulation(64, **POPULATION) if name == "population" else None
+        return JFedSim(JC(**SMALL), j_data(4, 0.5, **DATA), JH(**H),
+                       JT(**T), batches_per_epoch=2, seed=0,
+                       wireless=_wireless(name, JW, JF), population=pop,
+                       sampling="rate", telemetry=telemetry)
+
+    tel = JTelemetry()                        # enabled, in memory
+    sim = build(None if name == "stale" else tel)
     state = jax.tree.map(np.asarray, sim.state_dict())
     res = sim.run(rounds=2, log_every=1)
-    return state, res
+    if name == "stale":                       # R5: not bit-inert there
+        build(tel).run(rounds=2, log_every=1)
+    return state, res, tel.metrics.snapshot()
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +120,7 @@ def reference_runs():
 
 @pytest.mark.parametrize("name", sorted(NETWORKS))
 def test_network_mode_matches_reference(reference_runs, name):
-    state, want = reference_runs[name]
+    state, want, _ = reference_runs[name]
     pop = Population(64, **POPULATION) if name == "population" else None
     sim = _port_sim(name, pop)
     sim.load_state_dict(state)
@@ -135,6 +153,38 @@ def test_network_mode_matches_reference(reference_runs, name):
     else:
         assert all(r["scheduled"] <= 4 for r in rows)
         assert pop.part_count.sum() == 16 and (pop.head_slot >= 0).any()
+
+
+GAUGES = ("train_loss", "test_loss", "test_acc")
+
+
+@pytest.mark.parametrize("name", sorted(NETWORKS))
+def test_fedsim_instruments_match_reference(reference_runs, name):
+    """``FedSim(telemetry=)``'s instruments: the aggregation masses and
+    the scheduler's counters equal the reference's exactly, the logged
+    losses and accuracy within the no-codec tolerance of the reference's
+    telemetry-off run."""
+    state, want, want_snap = reference_runs[name]
+    pop = Population(64, **POPULATION) if name == "population" else None
+    tel = Telemetry()
+    sim = _port_sim(name, pop, telemetry=tel)
+    sim.load_state_dict(state)
+    got = sim.run(rounds=2, log_every=1)
+    snap = tel.metrics.snapshot()
+    assert set(snap) == set(want_snap)
+    assert snap["fedsim.rounds"]["value"] == 2
+    assert snap["fedsim.round_wall_s"]["count"] == 2
+    for k in set(snap) - {f"fedsim.{g}" for g in GAUGES} - {
+            "fedsim.round_wall_s"}:
+        assert snap[k] == want_snap[k], k
+    for g in GAUGES:
+        assert snap[f"fedsim.{g}"]["value"] == got.history[-1][g]
+        np.testing.assert_allclose(snap[f"fedsim.{g}"]["value"],
+                                   want.history[-1][g], rtol=RTOL,
+                                   atol=ATOL, err_msg=g)
+    if name == "stale":
+        assert snap["fedsim.agg_mass_stale"]["value"] > 0
+        assert snap["stale.delivered"]["value"] > 0
 
 
 def test_save_restore_resumes_bit_identically(tmp_path):
@@ -173,6 +223,3 @@ def test_population_mode_rejects_what_the_reference_rejects():
     with pytest.raises(ValueError):                       # B mismatch
         build(WirelessConfig(model="rayleigh"),
               population=Population(64, num_es=4, seed=0))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        FedSim(CNNConfig(**SMALL), data, HierarchyConfig(**H),
-               TrainConfig(**T), telemetry=object(), device="cpu")

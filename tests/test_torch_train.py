@@ -12,10 +12,9 @@ against the reference's ``repro.launch.train``.
   ``sys.modules``: its ``launch/train.py`` imports ``make_scheduler`` at
   the top (``train.py:40``), and the real package fails to import on
   this jax (R1 in ROADMAP.md); the ideal network never calls it.
-- The port's own kill-and-resume is bit-identical, the telemetry flag
-  (a later slice) raises, and with no card ``main`` and ``train`` raise
-  unless the CPU is asked for.  The network modes are
-  ``test_torch_train_wireless.py``'s.
+- The port's own kill-and-resume is bit-identical, and with no card
+  ``main`` and ``train`` raise unless the CPU is asked for.  The network
+  modes and ``--trace-dir`` are ``test_torch_train_wireless.py``'s.
 """
 
 import json
@@ -174,13 +173,6 @@ def test_codec_flags_have_no_effect_on_the_ideal_network(capsys):
                                   "greedy", "--erasure-prob", "0.5"],
                           capsys)
     assert plain[-1] == coded[-1]
-
-
-@pytest.mark.parametrize("flags", [["--trace-dir", "unused"]],
-                         ids=["trace"])
-def test_later_slices_raise(flags):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ttrain.main(["--device", "cpu", *flags])
 
 
 def test_population_on_the_ideal_network_is_a_usage_error():

@@ -16,10 +16,18 @@ and writes its state checkpoint every round.  Checked:
   with its final JSON: the network numbers equal, losses and parameters
   within ``test_torch_train.py``'s tolerance, the scheduler's state equal;
 - the port's own kill-and-resume with an erasure plan in the fault stream
-  is bit-identical.
+  is bit-identical;
+- ``--trace-dir`` (on the reference's runs too: its telemetry changes no
+  number) writes the reference's files: ``trace.json``'s events equal,
+  every ``metrics.jsonl`` line's ``sched.*``, ``energy.*``, ``stale.*`` and
+  ``faults.*`` equal, its ``log.train.*`` equal on the network keys and
+  within the tolerance on losses, ``manifest.json`` with the reference's
+  keys (``"torch"`` for ``"jax"``).  ``kernel.*`` differ by design: the
+  reference's round is jitted, so its probes count traced calls.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -30,6 +38,7 @@ import pytest
 
 from test_torch_wireless_oracle import reference_wireless
 
+from repro_torch.convert import params_from_numpy
 from repro_torch.launch import train as ttrain
 
 BASE = ["--arch", "gemma3-12b", "--rounds", "2", "--clients", "4", "--seq",
@@ -65,7 +74,8 @@ def reference_runs(tmp_path_factory):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 main(BASE + flags + ["--ckpt-dir", str(d),
-                                     "--ckpt-every", "1"])
+                                     "--ckpt-every", "1",
+                                     "--trace-dir", str(d / "trace")])
             out[name] = (d, *_records(buf.getvalue()))
     return out
 
@@ -122,6 +132,76 @@ def test_resume_from_reference_state_matches_reference(
     with np.load(tmp_path / STEP) as x, np.load(ref_dir / STEP) as y:
         for k in y.files:
             np.testing.assert_allclose(x[k], y[k], **TOL, err_msg=k)
+
+
+EXACT = ("sched.", "energy.", "stale.", "faults.")
+LOG_EXACT = NET + ("step", "client", "ckpt")
+LOG_SKIP = ("s_per_round",)
+
+
+def _telemetry_files(d):
+    evs = json.load(open(d / "trace.json"))
+    lines = [json.loads(ln) for ln in open(d / "metrics.jsonl")]
+    return evs, lines, json.load(open(d / "manifest.json"))
+
+
+@pytest.fixture(scope="module")
+def reference_init():
+    """The reference ``main``'s initial parameters (one replica, numpy)."""
+    import jax
+    from repro.configs.registry import get_arch as j_arch
+    from repro.models.registry import build_model as j_build
+    params = j_build(j_arch("gemma3-12b").reduced()).init(
+        jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_trace_dir_writes_the_reference_files(reference_runs, reference_init,
+                                              name, tmp_path, capsys,
+                                              monkeypatch):
+    ref_dir, want_steps, want_out = reference_runs[name]
+    build = ttrain.build_model
+
+    def from_reference_init(cfg):
+        # the port's main draws its weights from torch's streams; start it
+        # from the reference's so the losses can be held to them
+        return dataclasses.replace(build(cfg), init=lambda gen, dtype=None:
+                                   params_from_numpy(reference_init, "cpu"))
+
+    monkeypatch.setattr(ttrain, "build_model", from_reference_init)
+    steps, out = _port(BASE + CASES[name] + [
+        "--ckpt-dir", str(tmp_path), "--ckpt-every", "1",
+        "--trace-dir", str(tmp_path / "trace")], capsys)
+    assert [{k: s[k] for k in NET if k in s} for s in steps] == [
+        {k: s[k] for k in NET if k in s} for s in want_steps]
+    for f in ("trace.json", "metrics.jsonl", "manifest.json", "summary.txt"):
+        assert (tmp_path / "trace" / f).exists(), f
+    evs, lines, man = _telemetry_files(tmp_path / "trace")
+    want_evs, want_lines, want_man = _telemetry_files(ref_dir / "trace")
+    assert evs == want_evs
+    assert len(lines) == len(want_lines) == 3     # 2 rounds + close
+    for got, want in zip(lines, want_lines):
+        assert got["step"] == want["step"]
+        g, w = got["metrics"], want["metrics"]
+        keys = {k for k in w if k.startswith(EXACT)}
+        assert keys and {k for k in g if k.startswith(EXACT)} == keys
+        assert {k: g[k] for k in keys} == {k: w[k] for k in keys}
+        logs = {k for k in w if k.startswith("log.train.")}
+        assert {k for k in g if k.startswith("log.train.")} == logs
+        for k in logs:
+            if k.endswith(LOG_SKIP):
+                continue
+            if k.rsplit(".", 1)[1] in LOG_EXACT:
+                assert g[k] == w[k], k
+            else:
+                np.testing.assert_allclose(g[k]["value"], w[k]["value"],
+                                           **TOL, err_msg=k)
+    assert set(man) - {"torch"} == set(want_man) - {"jax"}
+    assert man["torch"]["backend"] == "cpu"
+    assert man["seeds"] == want_man["seeds"] == {"seed": 0}
+    assert (man["arch"], man["clients"]) == (want_man["arch"],
+                                             want_man["clients"])
 
 
 def test_kill_and_resume_replays_the_fault_schedule(tmp_path, capsys):

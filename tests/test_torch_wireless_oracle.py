@@ -239,7 +239,3 @@ def test_fault_free_default_builds_no_injector():
     assert port_scheduler("rayleigh").injector is None
     assert port_scheduler("harq").injector is not None
 
-
-def test_telemetry_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_scheduler("rayleigh", telemetry=object())
