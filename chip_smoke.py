@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's six paths on one NVIDIA H100 and check them.
+"""Drive the PyTorch port's paths on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
 
@@ -13,8 +13,11 @@ RG-LRU scan, and K2), and PHSFL training of those LMs
 both training paths over the wireless network (the numpy scheduler
 oracle, the float64 cohort core on the card, FedSim's and the launcher's
 network modes: K1 and K3), and the telemetry of the CNN path and the
-launcher (traces, metrics, manifests, the kernel probes: K1 and K3) and
-the Genie baseline (``centralized_sgd``).  Phases, each printing one JSON
+launcher (traces, metrics, manifests, the kernel probes: K1 and K3),
+the Genie baseline (``centralized_sgd``), and the six decoder LMs of the
+MoE / MLA / M-RoPE slice served and trained (the same entry points:
+K2 in olmoe-1b-7b's attention, deepseek-v2-236b's MLA at head width
+192 and qwen2-vl-7b's M-RoPE attention).  Phases, each printing one JSON
 line (any mismatch or fault exits non-zero; no phase's failure is
 caught):
 
@@ -34,15 +37,22 @@ caught):
    softcap, q/k/v as slices of one fused buffer), the head bank at the
    reference's size, the serving path's shapes, recurrentgemma-2b's 10
    query heads over one kv head with its window of 2048 binding and at
-   the shapes train_rglru gives it (2 and 4 x 512 tokens); 2e-5 in
-   float32, 2e-2 in bfloat16, elementwise, and the whole case's relative
-   error within 1e-5 / 1e-2), and its backward against autograd of the
-   plain version;
+   the shapes train_rglru gives it (2 and 4 x 512 tokens), head width
+   192 in both dtypes, olmoe's and qwen2-vl's shapes on their paths, and
+   MLA's call with v zero-padded from 128 to 192 against the plain
+   version on the unpadded v; 2e-5 in float32, 2e-2 in bfloat16,
+   elementwise, and the whole case's relative error within 1e-5 /
+   1e-2), and its backward against autograd of the plain version (also
+   MLA's padded call, and qwen2-vl's 7:1 GQA at 2048 tokens in bf16);
 5. time: K1, its plain version and its bound, with CUDA events;
 6. time_flash: K2 at the serving path's two shapes (global and
    sliding-window layers), its plain version, its bound, the fraction of
    the bound it reaches, its rate without masks on the same inputs, and
-   PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+   PyTorch's ``scaled_dot_product_attention`` on the same inputs (with
+   the names of the kernels it ran); then at deepseek-v2-236b's MLA
+   (6,2048,128,192, v of 128: the kernel on v zero-padded to 192, the
+   plain version and SDPA on the unpadded v) and olmoe-1b-7b's
+   (6,2048,16,128);
    check_flash_backward: K2's backward at one gemma3-width layer with
    8192 tokens (past the dense recompute's 4096), global and window
    1024: the blocked recompute's and the dense one's peak memory and
@@ -173,10 +183,31 @@ caught):
     0 just before and read just after: its final JSON and losses equal to
     the run without, K3's probe calls equal to its launches (11), the four
     files, the ``log.train.*`` gauges;
-24. the kernels line (each kernel's launches on its serving or CNN path,
+24. reference_zoo: each of olmoe-1b-7b, deepseek-v2-236b, qwen2-vl-7b,
+    command-r-plus-104b, mistral-large-123b and gemma3-27b at
+    ``reduced(num_layers=3)`` (float32, the MoE widened to 8 experts,
+    top-2 / top-3) on the card against the CPU, same weights: the loss
+    (qwen2-vl's with patch embeddings and M-RoPE positions), a few decode
+    steps' logits and a short ``serve()``, within the CPU tests' 1e-4;
+    K2 once per attention layer of the card's forward;
+25. serve_olmoe: the LM path at olmoe-1b-7b's published config whole
+    (16 layers, 64 experts top-8, bf16) at the serving cells' traffic,
+    counts set to 0 just before and read just after: 16 K2 launches at
+    head width 128, the MoE's host reads of its group sizes; then the
+    MoE's share of a trunk forward's kernel time and one decode step;
+    serve_deepseek: deepseek-v2-236b's published widths cut to 4 layers
+    (the dense first layer, 3 MoE layers of 160 experts top-6 plus 2
+    shared), the same traffic: 4 K2 launches at head width 192, the
+    latent cache's bytes a token and layer against an expanded cache's;
+26. train_qwen2vl, train_olmoe: PHSFL training at qwen2-vl-7b's and
+    olmoe-1b-7b's published widths cut to 4 layers, bf16, 2 clients x
+    one local step of 1 x 2048 tokens (qwen2-vl's first 1024 its patch
+    embeddings, with M-RoPE positions), then the head bank and both
+    evaluations: K2 under autograd once per attention layer a forward;
+27. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
-    phases and the telemetry phases, with each probe's wall time), then
-    ``{"ok": true, "device": {...}}`` as the last line.
+    phases, the telemetry phases and the zoo's, with each probe's wall
+    time), then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are not beside this script.
@@ -298,6 +329,35 @@ TRAIN_RGLRU = dict(rounds=1, clients=2, local_steps=1, micro=2, seq=512,
 # reference's ``make resume-smoke`` on the ideal network
 RESUME_FLAGS = ["--rounds", "2", "--clients", "2", "--seq", "64",
                 "--ckpt-every", "1"]
+
+# the MoE / MLA / M-RoPE slice: its six architectures.  reference_zoo
+# runs each at reduced(num_layers=3), float32, its MoE widened as the CPU
+# tests widen it (reduced() routes every token to every expert), within
+# the CPU tests' 1e-4
+ZOO_ARCHS = ("olmoe-1b-7b", "deepseek-v2-236b", "qwen2-vl-7b",
+             "command-r-plus-104b", "mistral-large-123b", "gemma3-27b")
+ZOO_WIDENED = {"olmoe-1b-7b": dict(num_experts=8, top_k=2),
+               "deepseek-v2-236b": dict(num_experts=8, top_k=3)}
+ZOO_REFERENCE_LAYERS = 3
+ZOO_TOL = 1e-4
+# the serving cells' traffic (the reference's serving defaults, the bank
+# on 2 x 2048 tokens a client), for serve_olmoe and serve_deepseek
+SERVE_CELL = dict(batch=4, steps=16, clients=3, prompt_len=16, seed=0,
+                  bank_seq=2048)
+# serve_deepseek: the published widths cut to the first dense layer and
+# 3 MoE layers (about 13.3 B parameters, 27 GB in bf16)
+DEEPSEEK_LAYERS = 4
+# train_qwen2vl / train_olmoe: published widths cut to 4 layers, 2
+# clients x one local step of 1 x 2048 tokens
+TRAIN_ZOO_LAYERS = 4
+TRAIN_ZOO = dict(rounds=1, clients=2, local_steps=1, micro=1, seq=2048,
+                 lr=0.01, finetune_steps=5, seed=0)
+# K2 on the zoo's paths: olmoe's head bank (16 heads of 128, MHA);
+# deepseek's MLA (128 heads, q/k of 128 + 64, v of 128, zero-padded to
+# 192 for K2); qwen2-vl's 28 query heads over 4 kv heads of 128 (7:1)
+FLASH_OLMOE = dict(b=6, s=2048, h=16, kvh=16, d=128)
+FLASH_MLA = dict(b=6, s=2048, h=128, kvh=128, d=192, dv=128)
+FLASH_QWEN = dict(s=2048, h=28, kvh=4, d=128)
 
 
 def train_batches(kw) -> tuple:
@@ -674,6 +734,7 @@ def _flash_plain(ref, q, k, v, **kw):
 
 def phase_check_flash(torch, ops, ref):
     """K2 against its plain version on the card, on the same inputs."""
+    import torch.nn.functional as F
     m = FLASH_MAIN
     cases = []
     for b, h, kvh, s, d in [(2, 4, 2, 256, 64), (1, 4, 4, 512, 32),
@@ -725,15 +786,17 @@ def phase_check_flash(torch, ops, ref):
     worst_rel = dict(worst)
 
     def compare(q, k, v, dtype, kw, **label):
-        got = ops.flash_attention(q, k, v, **kw)
-        want = _flash_plain(ref, q, k, v, **kw)
+        judge(ops.flash_attention(q, k, v, **kw),
+              _flash_plain(ref, q, k, v, **kw), q.dtype, dtype, kw, **label)
+
+    def judge(got, want, qdtype, dtype, kw, **label):
         torch.cuda.synchronize()
         diff = got.float() - want.float()
         err = float(diff.abs().max())
         rel = float(diff.norm() / want.float().norm())
         tol = FLASH_TOL[dtype]
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol)) and got.dtype == q.dtype
+                                 atol=tol)) and got.dtype == qdtype
         ok = ok and rel <= FLASH_REL_TOL[dtype]
         worst[dtype] = max(worst[dtype], err)
         worst_rel[dtype] = max(worst_rel[dtype], rel)
@@ -756,6 +819,48 @@ def phase_check_flash(torch, ops, ref):
         for kw in (dict(causal=True), dict(causal=False, window=50)):
             compare(q, k, v, "bfloat16", kw, bshkd=[2, 129, 4, 2, d],
                     fused_slices=True)
+    # the zoo slice: head width 192 (MLA's 128 + 64, the D = 256 template
+    # with TMA zero-filling the columns past 192) in both dtypes and at the
+    # bf16 tiles' edges; olmoe's MHA at head width 128 (the head bank and
+    # train_olmoe's local step and bank) and qwen2-vl's 7:1 GQA (its
+    # training shapes)
+    o, qw = FLASH_OLMOE, FLASH_QWEN
+    zoo = [((1, s, 4, 4, 192), "bfloat16", dict(causal=True))
+           for s in FLASH_EDGE_LENGTHS]
+    zoo += [((2, 300, 4, 2, 192), "bfloat16", dict(causal=False,
+                                                    window=100)),
+            ((1, 257, 4, 4, 192), "float32", dict(causal=True)),
+            ((2, 100, 4, 2, 192), "float32", dict(causal=False))]
+    zoo += [((b, o["s"], o["h"], o["kvh"], o["d"]), "bfloat16",
+             dict(causal=True)) for b in (o["b"], *train_batches(TRAIN_ZOO))]
+    zoo += [((b, qw["s"], qw["h"], qw["kvh"], qw["d"]), "bfloat16",
+             dict(causal=True)) for b in train_batches(TRAIN_ZOO)]
+    n_rows = len(rows)
+    for i, (shape, dtype, kw) in enumerate(zoo):
+        q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype),
+                                1000 + i)
+        compare(q, k, v, dtype, kw, bshkd=list(shape))
+    zoo_rows = rows[n_rows:]
+    # MLA's call: q and k of 192 columns, v of 128 zero-padded to 192 for
+    # the kernel, the output sliced back, against the plain version on
+    # the unpadded v (which takes a narrower v); deepseek's serving shape
+    # compared a batch element at a time (the plain version's float32
+    # logits of the whole batch are 12.9 GB)
+    ml = FLASH_MLA
+    for b, s, h, dtype in ((2, 129, 4, "float32"), (2, 129, 4, "bfloat16"),
+                           (ml["b"], ml["s"], ml["h"], "bfloat16")):
+        q, k, v = _flash_inputs(torch, b, s, h, h, ml["d"],
+                                getattr(torch, dtype), 2000 + s)
+        v = v[..., :ml["dv"]].contiguous()
+        got = ops.flash_attention(q, k, F.pad(v, (0, ml["d"] - ml["dv"])),
+                                  causal=True)[..., :ml["dv"]]
+        want = torch.cat([_flash_plain(ref, q[i:i + 1], k[i:i + 1],
+                                       v[i:i + 1], causal=True)
+                          for i in range(b)])
+        judge(got, want, q.dtype, dtype, dict(causal=True),
+              bshkd=[b, s, h, h, ml["d"]], dv=ml["dv"], padded_v=True)
+    mla_rows = rows[-3:]
+    del q, k, v, got, want
     # backward: a recompute through the port's dense path, against
     # autograd of the plain version
     q, k, v = _flash_inputs(torch, 1, 64, 4, 2, 32, torch.float32, 99)
@@ -768,25 +873,63 @@ def phase_check_flash(torch, ops, ref):
                    for a, b in zip(leaves, plain))
     grad_ok = all(torch.allclose(a.grad, b.grad, rtol=1e-4, atol=1e-4)
                   for a, b in zip(leaves, plain))
+    # the zoo's backwards: MLA's padded call (float32, 1e-4 as above) and
+    # qwen2-vl's 7:1 GQA at its training shape in bf16 (both sides round
+    # float32 gradients to bf16 once: K2's bf16 tolerance)
+    zoo_grads = {}
+    q, k, v = _flash_inputs(torch, 1, 256, 4, 4, ml["d"], torch.float32, 98)
+    v = v[..., :ml["dv"]].contiguous()
+    w = torch.randn(1, 256, 4, ml["dv"], device="cuda")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (ops.flash_attention(leaves[0], leaves[1],
+                         F.pad(leaves[2], (0, ml["d"] - ml["dv"])),
+                         causal=True)[..., :ml["dv"]] * w).sum().backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    (_flash_plain(ref, *plain, causal=True) * w).sum().backward()
+    zoo_grads["mla_padded_float32"] = (
+        max(float((a.grad - b.grad).abs().max())
+            for a, b in zip(leaves, plain)),
+        all(torch.allclose(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+            for a, b in zip(leaves, plain)))
+    q, k, v = _flash_inputs(torch, 1, qw["s"], qw["h"], qw["kvh"], qw["d"],
+                            torch.bfloat16, 97)
+    w = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (ops.flash_attention(*leaves, causal=True) * w).float().sum().backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    (_flash_plain(ref, *plain, causal=True) * w).float().sum().backward()
+    tol = FLASH_TOL["bfloat16"]
+    zoo_grads["qwen_gqa_bfloat16"] = (
+        max(float((a.grad.float() - b.grad.float()).abs().max())
+            for a, b in zip(leaves, plain)),
+        all(torch.allclose(a.grad.float(), b.grad.float(), rtol=tol,
+                           atol=tol) for a, b in zip(leaves, plain)))
+    del leaves, plain, q, k, v, w
     bad = [r for r in rows if not r["ok"]]
     emit({"phase": "check_flash", "kernel": "flash_attention",
           "cases": len(rows), "tolerance": FLASH_TOL,
           "rel_tolerance": FLASH_REL_TOL, "max_abs_err": worst,
           "max_rel_err": worst_rel, "mismatches": bad,
           "main_shapes": main_rows, "mqa_window_binds": mqa_row,
-          "train_shapes": train_rows,
-          "backward_max_abs_err": grad_err, "backward_ok": grad_ok})
+          "train_shapes": train_rows, "zoo_shapes": zoo_rows,
+          "mla_padded_v": mla_rows,
+          "backward_max_abs_err": grad_err, "backward_ok": grad_ok,
+          "zoo_backward": {name: {"max_abs_err": e, "ok": ok}
+                           for name, (e, ok) in zoo_grads.items()}})
     assert not bad and grad_ok, "K2 disagrees with its plain version"
+    assert all(ok for _, ok in zoo_grads.values()), zoo_grads
     return max(worst.values())
 
 
-def flash_work(b, s, h, kvh, d, window, bytes_per_el=2):
+def flash_work(b, s, h, kvh, d, window, bytes_per_el=2, dv=None):
     """Unmasked (q, k) pairs of causal attention with this window, the
-    flops they need (4 d each: QK^T and PV) and the bytes the function
-    must move (q, k, v read once, o written once)."""
+    flops they need (2 d for QK^T and 2 dv for PV each; dv = d but for
+    MLA's narrower v) and the bytes the function must move (q, k, v read
+    once, o written once)."""
+    dv = d if dv is None else dv
     pairs = sum(min(q + 1, window) if window else q + 1 for q in range(s))
-    flops = 4 * d * pairs * b * h
-    nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * bytes_per_el
+    flops = 2 * (d + dv) * pairs * b * h
+    nbytes = (b * s * h * (d + dv) + b * s * kvh * (d + dv)) * bytes_per_el
     return pairs, flops, nbytes
 
 
@@ -795,18 +938,25 @@ def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
     """K2 at a serving path's shapes: the kernel, its plain version, its
     bound, and one PyTorch call that computes the same function
     (scaled_dot_product_attention with enable_gqa; a boolean band mask
-    for a sliding window that binds).  gemma3 and recurrentgemma have no
-    attention softcap, so the functions are the same; the port never
-    calls that function."""
+    for a sliding window that binds), with the name of the kernel it
+    ran.  None of the models has an attention softcap, so the functions
+    are the same; the port never calls that function.  With ``dv`` in
+    ``m`` (MLA) v has dv columns: the kernel is timed on v zero-padded to
+    d, as the model calls it, the plain version and the library call on
+    the unpadded v, and the bound counts the function's own bytes and
+    flops."""
     import torch.nn.functional as F
     q, k, v = _flash_inputs(torch, m["b"], m["s"], m["h"], m["kvh"], m["d"],
                             torch.bfloat16, 7)
+    dv = m.get("dv", m["d"])
+    v = v[..., :dv].contiguous()
+    vk = F.pad(v, (0, m["d"] - dv)) if dv < m["d"] else v
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(m["s"], device="cuda")
     out = {}
     for name, window in layers.items():
         kernel_ms = event_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=True, window=window), iters=20)
+            q, k, vk, causal=True, window=window), iters=20)
         plain_ms = event_ms(torch, lambda: _flash_plain(
             ref, q, k, v, causal=True, window=window), iters=5, warmup=1)
         if window and window < m["s"]:
@@ -818,21 +968,24 @@ def phase_time_flash(torch, ops, ref, m=FLASH_MAIN, layers=FLASH_LAYERS,
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qh, kh, vh, is_causal=True, enable_gqa=True)
         library_ms = event_ms(torch, lib, iters=20)
+        _, lib_kernels = kernel_breakdown(torch, lib, 1)
         lib_err = float((lib().transpose(1, 2).float() - ops.flash_attention(
-            q, k, v, causal=True, window=window).float()).abs().max())
+            q, k, vk, causal=True, window=window)[..., :dv].float())
+            .abs().max())
         pairs, flops, nbytes = flash_work(m["b"], m["s"], m["h"], m["kvh"],
-                                          m["d"], window)
+                                          m["d"], window, dv=dv)
         # the same inputs without any mask: every key tile of every row,
         # no boundary tiles and no causal imbalance across blocks, so the
         # rate of the kernel's steady loop alone
         full_ms = event_ms(torch, lambda: ops.flash_attention(
-            q, k, v, causal=False, window=0), iters=10)
-        full_flops = 4 * m["d"] * m["s"] * m["s"] * m["b"] * m["h"]
+            q, k, vk, causal=False, window=0), iters=10)
+        full_flops = 2 * (m["d"] + dv) * m["s"] * m["s"] * m["b"] * m["h"]
         flop_ms = flops / BF16_FLOPS * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"phase": "time_flash", "kernel": "flash_attention",
                "arch": arch, "layer": name, "window": window, "bshkd": [
-                   m["b"], m["s"], m["h"], m["kvh"], m["d"]],
+                   m["b"], m["s"], m["h"], m["kvh"], m["d"]], "dv": dv,
+               "library_kernels": sorted(k[:90] for k in lib_kernels),
                "dtype": "bfloat16", "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": max(flop_ms, byte_ms),
@@ -958,7 +1111,6 @@ def phase_serve(torch, kernels):
     reference's serving defaults (batch 4, 3 clients, prompt 16, 16
     steps) with a head bank over 2048-token sequences, so the window
     binds."""
-    from repro_torch.configs.base import ATTN, LOCAL_ATTN
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import personalized_logits, serve
     from repro_torch.models.registry import build_model
@@ -984,7 +1136,7 @@ def phase_serve(torch, kernels):
     # the path implies one K2 launch per attention layer: the head bank's
     # trunk forward runs all clients' sequences at once, and decoding is
     # dense tensor code over the cache
-    expected = sum(kind in (ATTN, LOCAL_ATTN) for kind in cfg.layer_kinds())
+    expected = attention_layers(cfg)
     finite = bool(torch.isfinite(res.logits).all()
                   and torch.isfinite(res.bank_losses).all()
                   and torch.isfinite(res.head_bank.float()).all())
@@ -3036,6 +3188,386 @@ def phase_genie(torch, np, data):
     assert mc["acc"] == mp["acc"], (mc, mp)
 
 
+# ------------------------------------------- the MoE / MLA / M-RoPE zoo ----
+def attention_layers(cfg) -> int:
+    """Layers of ``cfg`` that launch K2 once a trunk forward: global,
+    sliding-window and MLA attention (decoding is dense tensor code over
+    the cache, and MLA decodes in its latent form)."""
+    from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA_ATTN
+    return sum(kind in (ATTN, LOCAL_ATTN, MLA_ATTN)
+               for kind in cfg.layer_kinds())
+
+
+def zoo_config(arch, **over):
+    """An architecture of the zoo slice, its MoE widened past top_k =
+    experts when reduced (as the CPU parity tests widen it)."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch(arch).reduced(**over)
+    if arch in ZOO_WIDENED:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, **ZOO_WIDENED[arch]))
+    return cfg
+
+
+def phase_reference_zoo(torch, np, kernels):
+    """Each of the six architectures of the slice at ``reduced(num_layers=
+    3)`` (float32, olmoe's and deepseek's MoE widened to 8 experts, top-2
+    and top-3) on the card against the CPU, same weights: the loss (with
+    the MoE auxiliary term; qwen2-vl with its patch embeddings and M-RoPE
+    positions), the logits of a few decode steps (qwen2-vl's with M-RoPE
+    ids) and a short ``serve()`` (head bank, logits, tokens), within
+    ZOO_TOL, the CPU tests' 1e-4.  K2 launches once per attention layer
+    a forward on the card (counts read around each architecture)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    rows = {}
+    for arch in ZOO_ARCHS:
+        cfg = zoo_config(arch, num_layers=ZOO_REFERENCE_LAYERS)
+        model = build_model(cfg)
+        params = model.init(make_generator(0, "cpu"))
+        card = tree_map(lambda t: t.cuda(), params)
+        r = np.random.default_rng(1)
+        toks = r.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+        if cfg.vlm is not None:
+            batch["patch_embeds"] = (0.02 * r.normal(size=(
+                2, cfg.vlm.num_patch_tokens, cfg.d_model))).astype(
+                np.float32)
+            batch["positions3"] = r.integers(0, 64, (2, 64, 3)).astype(
+                np.int32)
+        loss = {}
+        for dev, p in (("cuda", card), ("cpu", params)):
+            reset_counts(kernels)
+            with torch.no_grad():
+                loss[dev] = float(model.loss(
+                    p, {k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()}))
+            if dev == "cuda":
+                counts = read_counts(kernels)
+        steps = {}
+        for dev, p in (("cuda", card), ("cpu", params)):
+            cache = model.init_cache(2, 4, dtype=torch.float32, device=dev)
+            out = []
+            with torch.no_grad():
+                for i in range(4):
+                    kw = ({"positions3": torch.from_numpy(
+                        batch["positions3"][:, i:i + 1]).to(dev)}
+                          if cfg.vlm is not None else {})
+                    lg, cache = model.decode_step(
+                        p, torch.from_numpy(toks[:, i:i + 1]).to(dev),
+                        cache, i, **kw)
+                    out.append(lg.cpu().numpy())
+            steps[dev] = np.stack(out)
+        skw = dict(batch=4, steps=8, clients=3, prompt_len=8, seed=0,
+                   bank_seq=64, log=MetricLogger("reference_zoo",
+                                                 sys.stderr))
+        sc = serve(cfg, params=card, device="cuda", **skw)
+        sp = serve(cfg, params=params, device="cpu", **skw)
+        diffs = {"loss": abs(loss["cuda"] - loss["cpu"]),
+                 "decode_logits": float(np.abs(steps["cuda"]
+                                               - steps["cpu"]).max())}
+        np.testing.assert_allclose(loss["cuda"], loss["cpu"], rtol=ZOO_TOL,
+                                   atol=ZOO_TOL, err_msg=arch)
+        np.testing.assert_allclose(steps["cuda"], steps["cpu"], rtol=ZOO_TOL,
+                                   atol=ZOO_TOL, err_msg=arch)
+        for name in ("head_bank", "logits", "bank_losses"):
+            a = getattr(sc, name).cpu().numpy()
+            b = getattr(sp, name).numpy()
+            assert np.isfinite(a).all(), (arch, name)
+            np.testing.assert_allclose(a, b, rtol=ZOO_TOL, atol=ZOO_TOL,
+                                       err_msg=f"{arch} {name}")
+            diffs[f"serve_{name}"] = float(np.abs(a - b).max())
+        same_tokens = sc.generated.cpu().tolist() == sp.generated.tolist()
+        rows[arch] = {"layer_kinds": list(cfg.layer_kinds()),
+                      "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+                      "loss": loss, "cuda_vs_cpu_max_abs_diff": diffs,
+                      "same_tokens": same_tokens,
+                      "loss_launches": counts["flash_attention"],
+                      "loss_launches_expected": attention_layers(cfg)}
+        assert math.isfinite(loss["cuda"]), arch
+        assert same_tokens, f"{arch}: generated tokens differ"
+        assert counts["flash_attention"] == attention_layers(cfg) > 0, (
+            arch, counts)
+    emit({"phase": "reference_zoo", "tol": ZOO_TOL,
+          "num_layers": ZOO_REFERENCE_LAYERS, "archs": rows})
+    return rows
+
+
+def _serve_zoo(torch, kernels, cfg, name):
+    """serve() of ``cfg`` on the card at the serving cells' traffic,
+    counts set to 0 just before and read just after, with the head width
+    of every K2 launch and the MoE's host reads of its group sizes."""
+    from repro_torch.hopper.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = sync_time(
+        torch, lambda: model.init(make_generator(0, "cuda")))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kw = SERVE_CELL
+    widths = []
+    launch = fa_kernel.flash_attention_cuda
+
+    def seen(q, k, v, **a):
+        widths.append((q.shape[-1], v.shape[-1]))
+        return launch(q, k, v, **a)
+
+    fa_kernel.flash_attention_cuda = seen
+    reset_counts(kernels)                  # count this path's run alone
+    moe_mod.group_size_reads = 0
+    try:
+        res, wall = sync_time(torch, lambda: serve(
+            cfg, params=params, device="cuda",
+            log=MetricLogger(name, sys.stderr), **kw))
+    finally:
+        fa_kernel.flash_attention_cuda = launch
+    counts = read_counts(kernels)
+    reads = moe_mod.group_size_reads
+    peak = torch.cuda.max_memory_allocated()
+    expected = attention_layers(cfg)
+    finite = bool(torch.isfinite(res.logits).all()
+                  and torch.isfinite(res.bank_losses).all()
+                  and torch.isfinite(res.head_bank.float()).all())
+    shapes_ok = (tuple(res.generated.shape) == (kw["batch"], kw["steps"])
+                 and tuple(res.logits.shape) == (kw["batch"], kw["steps"],
+                                                 cfg.padded_vocab)
+                 and tuple(res.head_bank.shape) == (
+                     kw["clients"], cfg.d_model, cfg.padded_vocab))
+    tokens_ok = bool(((res.generated >= 0)
+                      & (res.generated < cfg.vocab_size)).all())
+    row = {"phase": name, "config": {
+               "arch": cfg.name, "num_layers": cfg.num_layers,
+               "layer_kinds": list(cfg.layer_kinds()),
+               "d_model": cfg.d_model, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+               "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+               "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
+               "vocab": cfg.padded_vocab, "dtype": cfg.dtype, **kw},
+           "params": n_params, "init_s": init_s, "serve_wall_s": wall,
+           "head_bank_s": res.bank_seconds, "decode_s": res.decode_seconds,
+           "decode_tokens": res.tokens, "decode_tok_per_s": res.tok_per_s,
+           "bank_losses": res.bank_losses.cpu().tolist(),
+           "generated": res.generated.cpu().tolist(),
+           "peak_mem_GB": peak / 1e9, "launches": counts,
+           "flash_launches_expected": expected,
+           "flash_head_widths_qv": sorted(set(widths)),
+           "moe_group_size_reads": reads, "finite": finite,
+           "shapes_ok": shapes_ok, "tokens_in_vocab": tokens_ok}
+    assert finite, "non-finite logits or losses"
+    assert shapes_ok and tokens_ok, "serve output has the wrong shape"
+    assert counts["flash_attention"] == expected == len(widths) > 0, (
+        counts, expected, len(widths))
+    assert (counts["quantize"] == counts["mlstm_chunk"]
+            == counts["rglru_scan"] == 0), counts
+    return model, params, res, row
+
+
+def _moe_profile(torch, cfg, model, params, res, name):
+    """Where one trunk forward of the head bank's size goes (6 x 2048
+    tokens): device kernel time of the whole forward, and of its MoE
+    FFNs alone (run again on the inputs they got in that forward), so the
+    MoE's share of the forward's kernel time; the host reads of the group
+    sizes a forward and a decode step; one decode step's profile."""
+    from repro_torch.launch.serve import personalized_logits
+    from repro_torch.models import moe as moe_mod
+    toks = torch.randint(0, cfg.vocab_size, (6, 2048), device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model.apply(params, {"tokens": toks})
+
+    captured = []
+    apply_moe = moe_mod.moe_apply
+
+    def grab(p, c, h, **a):
+        captured.append((p, h))
+        return apply_moe(p, c, h, **a)
+
+    moe_mod.moe_apply = grab
+    moe_mod.group_size_reads = 0
+    try:
+        forward()
+    finally:
+        moe_mod.moe_apply = apply_moe
+    reads_forward = moe_mod.group_size_reads
+
+    def moe_only():
+        with torch.no_grad():
+            for p, h in captured:
+                apply_moe(p, cfg, h)
+
+    row, _ = kernel_breakdown(torch, forward, 1)
+    moe_row, _ = kernel_breakdown(torch, moe_only, 1)
+    del captured
+    kernel_ms = row["kernel_ms_sum_per_step"]
+    emit({"phase": name, "what": f"one trunk forward, 6 x 2048 tokens, "
+          f"{cfg.num_layers} layers, bf16", **row,
+          "moe_kernel_ms": moe_row["kernel_ms_sum_per_step"],
+          "moe_share_of_kernel_time": moe_row["kernel_ms_sum_per_step"]
+          / kernel_ms if kernel_ms else None,
+          "moe_alone_wall_ms": moe_row["wall_ms_per_step"],
+          "moe_alone_busy_share": moe_row["device_busy_share"],
+          "moe_top_kernels": moe_row["top_kernels"][:5],
+          "group_size_reads_per_forward": reads_forward})
+
+    kw = SERVE_CELL
+    cache = model.init_cache(kw["batch"], kw["prompt_len"] + kw["steps"],
+                             dtype=torch.float32, device="cuda")
+    bank32 = res.head_bank.to(torch.float32)
+    tok = res.generated[:, :1]
+
+    def decode():
+        with torch.no_grad():
+            h, _ = model.decode_step(params, tok, cache, kw["prompt_len"],
+                                     return_hidden=True)
+            personalized_logits(h.to(torch.float32), bank32, res.profiles)
+
+    decode()                               # warm-up outside the profile
+    moe_mod.group_size_reads = 0
+    decode()
+    reads_step = moe_mod.group_size_reads
+    row, _ = kernel_breakdown(torch, decode, 5)
+    emit({"phase": name, "what": f"one decode step, batch {kw['batch']}, "
+          f"{cfg.num_layers} layers, per-request float32 heads", **row,
+          "group_size_reads_per_step": reads_step})
+    return reads_forward, reads_step
+
+
+def phase_serve_olmoe(torch, kernels):
+    """The LM path at olmoe-1b-7b's published config whole (16 layers,
+    d_model 2048, 16 heads of 128, 64 experts of 1024, top-8, vocab
+    50304, bf16) at the serving cells' traffic (batch 4, 3 profiles,
+    prompt 16, 16 tokens, the bank at 4 steps a client on 2 x 2048
+    tokens): one K2 launch per attention layer (16) in the bank's
+    forward, at head width 128; then where a trunk forward's kernel time
+    goes (the MoE's share) and one decode step."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("olmoe-1b-7b")
+    model, params, res, row = _serve_zoo(torch, kernels, cfg, "serve_olmoe")
+    n_moe = cfg.num_layers
+    expected_reads = n_moe * (1 + SERVE_CELL["prompt_len"] - 1
+                              + SERVE_CELL["steps"])
+    row["moe_group_size_reads_expected"] = expected_reads
+    emit(row)
+    assert row["launches"]["flash_attention"] == 16, row["launches"]
+    assert row["flash_head_widths_qv"] == [(128, 128)], row
+    assert row["moe_group_size_reads"] == expected_reads, row
+    reads = _moe_profile(torch, cfg, model, params, res,
+                         "serve_profile_olmoe")
+    assert reads == (n_moe, n_moe), reads
+    return row
+
+
+def phase_serve_deepseek(torch, kernels):
+    """The LM path at deepseek-v2-236b's published widths (d_model 5120,
+    128 MLA heads of 128 + 64 over a 512-wide latent, v 128, 160 routed
+    experts of 1536, top-6, plus 2 shared, vocab 102400, bf16), cut to
+    DEEPSEEK_LAYERS layers: the first dense layer (d_ff 12288), then MoE
+    layers.  The serving cells' traffic; one K2 launch per layer at head
+    width 192 (v zero-padded from 128); the latent cache's bytes per
+    token and layer against an expanded KV cache's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b"),
+                              num_layers=DEEPSEEK_LAYERS)
+    model, params, res, row = _serve_zoo(torch, kernels, cfg,
+                                         "serve_deepseek")
+    m = cfg.mla
+    f32 = 4                                      # serve() caches in float32
+    latent = (m.kv_lora_rank + m.qk_rope_head_dim) * f32
+    expanded = cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                + m.v_head_dim) * f32
+    cache = model.init_cache(1, 1, dtype=torch.float32, device="meta")
+    measured = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(cache)) // cfg.num_layers
+    row.update(latent_cache_bytes_per_token_layer=measured,
+               latent_cache_bytes_formula=latent,
+               expanded_kv_bytes_per_token_layer=expanded,
+               expanded_over_latent=expanded / latent)
+    emit(row)
+    assert measured == latent == 2304, (measured, latent)
+    assert row["launches"]["flash_attention"] == DEEPSEEK_LAYERS, row
+    assert row["flash_head_widths_qv"] == [(192, 192)], row
+    return row
+
+
+def phase_train_zoo(torch, kernels, arch, name):
+    """PHSFL training at ``arch``'s published widths cut to
+    TRAIN_ZOO_LAYERS layers, bf16, through train(): 2 clients in one ES,
+    one round of one local step on 1 x 2048 tokens (qwen2-vl's first
+    1024 the launcher's patch embeddings, with its M-RoPE positions;
+    olmoe's loss with the router's auxiliary term), then the head bank
+    and both evaluations.  Counts set to 0 just before and read just
+    after: K2 once per attention layer a forward, under autograd in the
+    local steps.  Fails on a non-finite loss, a head leaf that moved or
+    clients that differ after the edge step."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    cfg = dataclasses.replace(get_arch(arch), num_layers=TRAIN_ZOO_LAYERS)
+    kw = TRAIN_ZOO
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(make_generator(kw["seed"], "cuda"))
+    head0 = params["lm_head"]["w"].clone()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    reset_counts(kernels)                  # count this path's run alone
+    moe_mod.group_size_reads = 0
+    res, wall = sync_time(torch, lambda: train(
+        cfg, params=params, device="cuda",
+        log=MetricLogger(name, sys.stderr), **kw))
+    del params
+    counts = read_counts(kernels)
+    expected = _train_forwards(kw) * attention_layers(cfg)
+    finite = (all(math.isfinite(v) for v in res.losses)
+              and bool(torch.isfinite(res.global_eval).all()
+                       and torch.isfinite(res.personalized_eval).all()
+                       and torch.isfinite(res.finetune_losses).all()))
+    frozen = _heads_frozen(torch, res.params, head0)
+    synced = _replicas_equal(torch, res.params)
+    emit({"phase": name, "config": {
+              "arch": cfg.name, "num_layers": cfg.num_layers,
+              "layer_kinds": list(cfg.layer_kinds()),
+              "d_model": cfg.d_model, "heads": cfg.num_heads,
+              "kv_heads": cfg.num_kv_heads, "vocab": cfg.padded_vocab,
+              "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+              "vlm": dataclasses.asdict(cfg.vlm) if cfg.vlm else None,
+              "dtype": cfg.dtype, "edge_servers": 1, **kw},
+          "params": n_params, "train_wall_s": wall,
+          "round_wall_s": res.round_seconds,
+          "tokens_per_round": res.tokens_per_round,
+          "train_tokens_per_s": res.tokens_per_s,
+          "peak_mem_GB": res.peak_mem_GB, "losses": res.losses,
+          "finetune_losses": res.finetune_losses.cpu().tolist(),
+          "global_eval": res.global_eval.cpu().tolist(),
+          "personalized_eval": res.personalized_eval.cpu().tolist(),
+          "personalization_gain": res.personalization_gain,
+          "launches": counts, "flash_launches_expected": expected,
+          "flash_launches_expected_from": "(rounds x clients x kappa0 "
+          "local-step forwards + head bank + 2 evals) x attention layers",
+          "moe_group_size_reads": moe_mod.group_size_reads,
+          "finite": finite, "head_frozen": frozen, "clients_equal": synced})
+    assert finite, "non-finite loss"
+    assert frozen, "a head leaf moved"
+    assert synced, "clients differ after the edge step"
+    assert counts["flash_attention"] == expected > 0, (counts, expected)
+    assert (counts["quantize"] == counts["mlstm_chunk"]
+            == counts["rglru_scan"] == 0), counts
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3063,6 +3595,13 @@ def main() -> int:
     flash_err = phase_check_flash(torch, fa_ops, fa_ref)
     timing = phase_time(torch, ops, ref)
     flash_timing = phase_time_flash(torch, fa_ops, fa_ref)
+    zoo_timing = {
+        "deepseek-v2-236b": phase_time_flash(
+            torch, fa_ops, fa_ref, m=FLASH_MLA, layers={"global": 0},
+            arch="deepseek-v2-236b")["global"],
+        "olmoe-1b-7b": phase_time_flash(
+            torch, fa_ops, fa_ref, m=FLASH_OLMOE, layers={"global": 0},
+            arch="olmoe-1b-7b")["global"]}
     flash_backward = phase_check_flash_backward(torch, fa_ops)
     phase_reference(np)
     launches, sim = phase_fedsim(torch, np, kernels)
@@ -3111,6 +3650,13 @@ def main() -> int:
                                                              kernels)
     telemetry_counts["train_telemetry"] = phase_train_telemetry(torch, np,
                                                                 kernels)
+    zoo_rows = phase_reference_zoo(torch, np, kernels)
+    zoo_serving = {"serve_olmoe": phase_serve_olmoe(torch, kernels),
+                   "serve_deepseek": phase_serve_deepseek(torch, kernels)}
+    train_counts["train_qwen2vl"] = phase_train_zoo(
+        torch, kernels, "qwen2-vl-7b", "train_qwen2vl")
+    train_counts["train_olmoe"] = phase_train_zoo(
+        torch, kernels, "olmoe-1b-7b", "train_olmoe")
 
     def train_launches(name):
         """Each training phase's launches of one kernel, as it read them."""
@@ -3170,7 +3716,25 @@ def main() -> int:
                      "2048", "launches": rg_flash_launches,
             **{k: mqa_timing[k] for k in ("kernel_ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}}, {
+                                          "library_ms")}},
+        "zoo": {
+            "launches": {
+                "reference_zoo": {a: r["loss_launches"]
+                                  for a, r in zoo_rows.items()},
+                **{p: r["launches"]["flash_attention"]
+                   for p, r in zoo_serving.items()}},
+            "head_widths_qv": {p: r["flash_head_widths_qv"]
+                               for p, r in zoo_serving.items()},
+            **{arch: {"shape": "q (%d,%d,%d,%d), k (%d,%d,%d,%d), v "
+                               "width %d, bf16, causal" % (
+                                   *t["bshkd"][:3], t["bshkd"][4],
+                                   *t["bshkd"][:2], t["bshkd"][3],
+                                   t["bshkd"][4], t["dv"]),
+                      **{k: t[k] for k in ("kernel_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms",
+                                           "library_kernels")}}
+               for arch, t in zoo_timing.items()}}}, {
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/hopper/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",

@@ -1,30 +1,29 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 Holds the architectures whose every block kind the port can run.  The
-reference registry (``repro.configs.registry``) knows more; asking for one
-of those raises a ``KeyError`` that names what the port still lacks.
+reference registry (``repro.configs.registry``) knows one more, the
+encoder-decoder; asking for it raises a ``KeyError`` that names what the
+port still lacks.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_12b, recurrentgemma_2b, xlstm_350m
+from repro_torch.configs import (command_r_plus_104b, deepseek_v2_236b,
+                                 gemma3_12b, gemma3_27b, mistral_large_123b,
+                                 olmoe_1b_7b, qwen2_vl_7b, recurrentgemma_2b,
+                                 xlstm_350m)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (gemma3_12b, xlstm_350m, recurrentgemma_2b)
+    for m in (command_r_plus_104b, olmoe_1b_7b, mistral_large_123b,
+              qwen2_vl_7b, xlstm_350m, gemma3_27b, recurrentgemma_2b,
+              gemma3_12b, deepseek_v2_236b)
 }
 
-# the reference's other architectures, and what each needs beyond the
-# LM slices (global/sliding-window attention with a dense gated MLP;
-# the mLSTM and sLSTM blocks; the RG-LRU block)
+# the reference's other architecture, and what it needs beyond the
+# decoder LMs
 NOT_PORTED: dict[str, str] = {
-    "command-r-plus-104b": "its config (dense attention, layernorm)",
-    "mistral-large-123b": "its config (dense attention)",
-    "gemma3-27b": "its config (dense attention, 62 layers)",
-    "olmoe-1b-7b": "the MoE FFN",
-    "deepseek-v2-236b": "MLA attention and the MoE FFN",
-    "qwen2-vl-7b": "M-RoPE and the vision-patch frontend",
     "seamless-m4t-medium": "the encoder-decoder model",
 }
 

@@ -7,7 +7,10 @@ trunk is frozen and shared, the final hidden states of every client's
 batch come from ONE trunk forward over all C x B sequences (the
 reference's ``vmap`` over clients, with the trunk shared), under
 ``torch.no_grad``; each client's K head steps then run on its slice of
-them.
+them.  That holds for the MoE models too: the reference maps their
+clients one at a time (``lax.map``: its grouped matmul cannot be
+vmapped), but routing is per token, so the one batched pass does the
+same arithmetic for every token.
 
 ``extract_head`` and ``merge_head`` take a head out of a parameter tree
 and graft a (per-client) head onto the shared trunk.
@@ -69,23 +72,27 @@ def head_loss(head_w, cfg: ModelConfig, hidden, labels):
     return tf_mod.lm_loss({"lm_head": {"w": head_w}}, cfg, hidden, labels)
 
 
-def _client_hidden(model: Model, params, tokens):
-    """Final hidden states (C,B,S,D) of (C,B,S) tokens, one trunk pass."""
-    c, b, s = tokens.shape
+def _client_hidden(model: Model, params, batches):
+    """Final hidden states (C,B,S,D) of every client's batch (each key
+    (C,B,...): the tokens, and the VLM's patch embeddings and M-RoPE
+    positions), one trunk pass over the C x B sequences."""
+    c, b, s = batches["tokens"].shape
+    flat = {k: v.reshape(c * b, *v.shape[2:]) for k, v in batches.items()}
     with torch.no_grad():
-        hidden, _ = model.apply(params, {"tokens": tokens.reshape(c * b, s)})
+        hidden, _ = model.apply(params, flat)
     return hidden.reshape(c, b, s, -1)
 
 
 def personalize_head_bank(model: Model, params, batches, tcfg: TrainConfig):
     """Fine-tune one head per client from cached hidden states.
 
-    batches: {"tokens": (C,B,S), "labels": (C,B,S)} tensors.  Returns the
-    head bank (C, D, V) in the head's dtype and per-client losses (C, K)
-    float32 (the loss before each step).
+    batches: {"tokens": (C,B,S), "labels": (C,B,S), and for the VLM
+    "patch_embeds" (C,B,P,D) and "positions3" (C,B,S,3)} tensors.
+    Returns the head bank (C, D, V) in the head's dtype and per-client
+    losses (C, K) float32 (the loss before each step).
     """
     cfg = model.cfg
-    hidden = _client_hidden(model, params, batches["tokens"])
+    hidden = _client_hidden(model, params, batches)
     w0 = params["lm_head"]["w"].detach()
     c = hidden.shape[0]
     bank = torch.empty((c, *w0.shape), dtype=w0.dtype, device=w0.device)
@@ -106,7 +113,7 @@ def personalize_head_bank(model: Model, params, batches, tcfg: TrainConfig):
 def personalized_eval(model: Model, params, head_bank, batches):
     """Per-client loss (C,) of the personalized models on held-out
     batches."""
-    hidden = _client_hidden(model, params, batches["tokens"])
+    hidden = _client_hidden(model, params, batches)
     with torch.no_grad():
         return torch.stack([
             head_loss(head_bank[ci], model.cfg, hidden[ci],

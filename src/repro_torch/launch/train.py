@@ -62,8 +62,11 @@ def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
     """Stacked per-client batches (C, k, micro, seq); each client gets a
     DIFFERENT token distribution (client id shifts the vocab) => non-IID
     federated data.  The reference's numpy streams, element for
-    element."""
-    if cfg.encdec is not None or cfg.vlm is not None:
+    element.  A VLM's batch adds its stubbed frontend's inputs as the
+    reference builds them: patch embeddings of 0.02 (C, k, micro, P, D)
+    float32 and M-RoPE positions (C, k, micro, seq, 3), the token index in
+    all three streams."""
+    if cfg.encdec is not None:
         raise NotImplementedError(f"{cfg.name}'s frontend inputs come with "
                                   f"its model in a later slice")
     toks, labs = [], []
@@ -73,8 +76,16 @@ def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
         shift = (c * cfg.vocab_size) // (2 * max(C, 1))
         toks.append((nb["tokens"] + shift) % cfg.vocab_size)
         labs.append((nb["labels"] + shift) % cfg.vocab_size)
-    return {name: torch.from_numpy(np.stack(a)).reshape(C, k, micro, seq)
-            .to(device) for name, a in (("tokens", toks), ("labels", labs))}
+    batch = {name: torch.from_numpy(np.stack(a)).reshape(C, k, micro, seq)
+             .to(device) for name, a in (("tokens", toks), ("labels", labs))}
+    if cfg.vlm is not None:
+        batch["patch_embeds"] = torch.full(
+            (C, k, micro, cfg.vlm.num_patch_tokens, cfg.d_model), 0.02,
+            dtype=torch.float32, device=device)
+        batch["positions3"] = torch.arange(
+            seq, dtype=torch.int32, device=device)[:, None].expand(
+            C, k, micro, seq, 3).contiguous()
+    return batch
 
 
 def _synced_clock(dev: torch.device) -> float:

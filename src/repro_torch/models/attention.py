@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.flash_attention.ops import flash_attention
 from repro_torch.models.init_utils import dense, norm
-from repro_torch.models.layers import apply_norm, apply_rope
+from repro_torch.models.layers import apply_mrope, apply_norm, apply_rope
 
 DENSE_MAX_SEQ = 4096          # longest seq K2's backward recomputes whole
 Q_CHUNK = 1024                # query rows a block of the blocked recompute
@@ -149,17 +149,28 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
                      f"use 'auto', 'flash' or 'dense'")
 
 
+def _rotate(q, k, cfg: ModelConfig, theta: float, positions, positions3):
+    """RoPE on q and k at ``positions`` (B,S), or M-RoPE at ``positions3``
+    (B,S,3) when given (the VLM's text and patch positions)."""
+    if positions3 is not None:
+        sections = cfg.vlm.mrope_sections
+        return (apply_mrope(q, positions3, theta, sections),
+                apply_mrope(k, positions3, theta, sections))
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
 def attn_apply(p, cfg: ModelConfig, x, *, window: int = 0,
                rope_theta: float = 10000.0, softcap: float = 0.0,
-               positions=None, causal: bool = True, impl: str = "auto"):
-    """Full-sequence attention sublayer: proj -> rope -> attn -> out proj."""
+               positions=None, positions3=None, causal: bool = True,
+               impl: str = "auto"):
+    """Full-sequence attention sublayer: proj -> rope (M-RoPE with
+    ``positions3``) -> attn -> out proj."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
-    if rope_theta:
+    if rope_theta or positions3 is not None:
         pos = positions if positions is not None \
             else torch.arange(s, device=x.device)[None].expand(b, s)
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
+        q, k = _rotate(q, k, cfg, rope_theta, pos, positions3)
     out = self_attention(q, k, v, causal=causal, window=window,
                          softcap=softcap, impl=impl)
     return _out_proj(p, cfg, out)
@@ -177,21 +188,22 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
-                  rope_theta: float, softcap: float = 0.0):
+                  rope_theta: float, softcap: float = 0.0, positions3=None):
     """One-token decode: write this token's k/v into the cache, attend over
     the valid slots.
 
-    x: (B,1,D); index: number of tokens already in the cache.  Writes the
+    x: (B,1,D); index: number of tokens already in the cache;
+    positions3: optional (B,1,3) M-RoPE position ids of this token (in
+    place of ``index``'s RoPE).  Writes the
     cache in place (the reference returns a new one; here the update saves
     a copy of every layer's cache per token) and returns (out (B,1,D),
     cache).
     """
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
-    if rope_theta:
+    if rope_theta or positions3 is not None:
         pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
+        q, k = _rotate(q, k, cfg, rope_theta, pos, positions3)
 
     ck, cv = cache["k"], cache["v"]
     length = ck.shape[1]

@@ -1,5 +1,5 @@
-"""Shared layer math: norms, activations, RoPE, the gated MLP
-(``repro.models.layers``; M-RoPE waits for the VLM slice).
+"""Shared layer math: norms, activations, RoPE (with Qwen2-VL's M-RoPE),
+the gated MLP (``repro.models.layers``).
 
 Where the numbers could drift from the reference: ``jax.nn.gelu`` is the
 tanh approximation by default, so ``gelu`` here is too; RMSNorm takes a
@@ -67,6 +67,31 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(x.shape[-1], theta, x.device)        # (half,)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., seq, half)
     cos = torch.cos(ang)[..., None, :]                  # (..., seq, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: tuple[int, int, int]):
+    """Qwen2-VL multimodal RoPE [arXiv:2409.12191].
+
+    x: (..., seq, heads, head_dim); positions3: (..., seq, 3) integer
+    (temporal, height, width) position ids.  The head_dim/2 rotary
+    frequencies are split into ``sections`` (t/h/w); each section rotates
+    by its own position stream.  With the three streams equal this is
+    ``apply_rope``."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (half,)
+    # the position stream (0, 1 or 2) that drives each frequency
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, s in enumerate(sections)])
+    pos = positions3.to(torch.float32)[..., sec_id]         # (..., seq, half)
+    ang = pos * freqs
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1 = x[..., :half].to(torch.float32)
     x2 = x[..., half:].to(torch.float32)

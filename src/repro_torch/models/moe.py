@@ -1,0 +1,117 @@
+"""Mixture-of-Experts FFN with token-choice top-k routing
+(``repro.models.moe``).
+
+Covers both MoE architectures: olmoe-1b-7b (64 experts, top-8, no shared
+experts) and deepseek-v2-236b (160 routed top-6 + 2 shared experts, after
+a first dense layer).
+
+The reference sorts the (token, expert) pairs by expert and runs its
+grouped matmuls with ``jax.lax.ragged_dot``, a library op outside any
+Pallas kernel.  Here each expert's contiguous segment of the sorted pairs
+goes through ``torch.matmul``: one host read of the group sizes per call
+(counted in ``group_size_reads``), and an expert with no tokens is
+skipped.  The reference's combine is a scatter-add (``.at[st].add``);
+on the card ``index_add_`` is atomic and does not repeat, so the pairs
+are gathered back to (N, K, D) by the inverse permutation and added over
+K in a fixed order instead.  Casts follow the reference: the router in
+float32, top-k weights renormalised with a 1e-9 clamp, the weights cast
+to the expert output's dtype before the product, the combine in that
+dtype, and the Switch auxiliary loss in float32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.init_utils import dense, truncated_normal
+from repro_torch.models.layers import activation
+
+group_size_reads = 0      # host reads of the group sizes in this process
+
+
+def _experts(gen: torch.Generator, e: int, d_in: int, d_out: int, dtype):
+    """(E, d_in, d_out) expert weights: truncated normal / sqrt(d_in)."""
+    return truncated_normal(gen, (e, d_in, d_out), 1.0 / math.sqrt(d_in),
+                            dtype)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
+    dtype = dtype or getattr(torch, cfg.dtype)
+    moe = cfg.moe
+    e, d, f = moe.num_experts, cfg.d_model, moe.d_ff_expert
+    p = {
+        "router": dense(gen, d, e, dtype=torch.float32),  # router in f32
+        "w_gate": _experts(gen, e, d, f, dtype),
+        "w_up": _experts(gen, e, d, f, dtype),
+        "w_down": _experts(gen, e, f, d, dtype),
+    }
+    if moe.num_shared_experts:
+        fs = moe.d_ff_shared * moe.num_shared_experts
+        p["shared"] = {
+            "gate": dense(gen, d, fs, dtype=dtype),
+            "up": dense(gen, d, fs, dtype=dtype),
+            "down": dense(gen, fs, d, dtype=dtype),
+        }
+    return p
+
+
+def route(p, cfg: ModelConfig, flat):
+    """Router of (N, D) tokens: the renormalised top-k weights (N, K),
+    experts (N, K) and pairs routed to each expert (E,), and the Switch
+    load-balance loss (float32 scalar): E x sum over experts of (fraction
+    of routed pairs) x (mean router probability)."""
+    moe = cfg.moe
+    n = flat.shape[0]
+    logits = flat.to(torch.float32) @ p["router"]["w"]          # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, moe.top_k, dim=-1)         # (N, K)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    counts = torch.bincount(top_e.reshape(-1), minlength=moe.num_experts)
+    tokens_per_expert = counts.to(torch.float32) / (n * moe.top_k)
+    aux = moe.num_experts * (tokens_per_expert * probs.mean(dim=0)).sum()
+    return top_w, top_e, counts, aux
+
+
+def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None):
+    """x: (B,S,D) -> (out (B,S,D) in x's dtype, aux_loss float32 scalar)."""
+    global group_size_reads
+    moe = cfg.moe
+    act = activation(act_name or cfg.act)
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    top_w, top_e, counts, aux = route(p, cfg, flat)
+
+    # ---- sort token-expert pairs by expert (stable, as jnp.argsort) ----
+    flat_e = top_e.reshape(-1)                                  # (N*K,)
+    order = torch.argsort(flat_e, stable=True)
+    xs = flat[order // moe.top_k]                               # (N*K, D)
+    sizes = counts.tolist()
+    group_size_reads += 1
+
+    # ---- grouped matmuls, one expert's segment at a time ----
+    segs, start = [], 0
+    for e, g in enumerate(sizes):
+        if g:
+            xe = xs[start:start + g]
+            h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+            segs.append(h @ p["w_down"][e])
+            start += g
+    y = torch.cat(segs)                                         # (N*K, D)
+
+    # ---- combine: back to (N, K, D) by the inverse permutation ----
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    yk = y[inv].reshape(b * s, moe.top_k, d)
+    wk = top_w.to(y.dtype)
+    out = yk[:, 0] * wk[:, 0, None]
+    for j in range(1, moe.top_k):
+        out = out + yk[:, j] * wk[:, j, None]
+
+    if moe.num_shared_experts:
+        sh = p["shared"]
+        hs = act(flat @ sh["gate"]["w"]) * (flat @ sh["up"]["w"])
+        out = out + hs @ sh["down"]["w"]
+    return out.reshape(b, s, d).to(x.dtype), aux.to(torch.float32)

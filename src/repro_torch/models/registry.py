@@ -19,8 +19,8 @@ class Model:
     apply: Callable                   # (params, batch, **kw) -> (hidden, aux)
     loss: Callable                    # (params, batch, **kw) -> scalar
     init_cache: Callable              # (batch, max_len, dtype, device)
-    decode_step: Callable             # (params, token, cache, index)
-    #                                   -> (logits, cache)
+    decode_step: Callable             # (params, token, cache, index,
+    #                                   positions3=None) -> (logits, cache)
     logits: Callable                  # (params, hidden) -> logits
 
 
@@ -36,15 +36,20 @@ def build_model(cfg: ModelConfig) -> Model:
         return tf_mod.apply(params, cfg, batch, impl=impl)
 
     def loss(params, batch, *, impl="auto"):
-        hidden, _ = tf_mod.apply(params, cfg, batch, impl=impl)
-        return tf_mod.lm_loss(params, cfg, hidden, batch["labels"])
+        hidden, aux = tf_mod.apply(params, cfg, batch, impl=impl)
+        ce = tf_mod.lm_loss(params, cfg, hidden, batch["labels"])
+        if cfg.moe is not None:
+            ce = ce + cfg.moe.router_aux_loss * aux
+        return ce
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, device="cpu"):
         return tf_mod.init_cache(cfg, batch, max_len, dtype=dtype,
                                  device=device)
 
-    def decode_step(params, token, cache, index, *, return_hidden=False):
+    def decode_step(params, token, cache, index, *, positions3=None,
+                    return_hidden=False):
         return tf_mod.decode_step(params, cfg, token, cache, index,
+                                  positions3=positions3,
                                   return_hidden=return_hidden)
 
     def logits(params, hidden):

@@ -1,11 +1,14 @@
-"""Decoder-LM assembly (``repro.models.transformer``), for the block kinds
-of the serving slices: global and sliding-window attention, and the RG-LRU
-recurrent block, each with a dense gated MLP; and the xLSTM blocks (mLSTM
-and sLSTM, each with its own up/down projections and no MLP sublayer).
+"""Decoder-LM assembly (``repro.models.transformer``) for every decoder
+architecture: global and sliding-window attention (RoPE, or Qwen2-VL's
+M-RoPE), DeepSeek-V2's multi-head latent attention and the RG-LRU
+recurrent block, each with a dense gated MLP or a MoE FFN; and the xLSTM
+blocks (mLSTM and sLSTM, each with its own up/down projections and no MLP
+sublayer).
 
 Layers are grouped into *stages* as in the reference:
 
-    lead  — unscanned leading layers (the PHSFL client-side layers)
+    lead  — unscanned leading layers (deepseek's first dense-FFN layer,
+            the PHSFL client-side layers)
     scan  — (pattern of len p) x (repeats k), params stacked on a leading
             'stack' dim; the reference's ``lax.scan`` is a loop over it
     tail  — unscanned remainder
@@ -13,10 +16,8 @@ Layers are grouped into *stages* as in the reference:
 so parameter trees carry across unchanged.  The LM head is always a
 separate parameter ("lm_head"): the PHSFL frozen random classifier.
 
-Other block kinds (MLA, MoE) raise ``NotImplementedError`` naming the
-slice that brings them.  The reference's activation
-checkpointing of the trunk (``remat``) is a training knob and waits for
-the LM training slice; ``lm_loss`` keeps its per-chunk recompute.
+The reference's activation checkpointing of the trunk (``remat``) comes
+with a later slice; ``lm_loss`` keeps its per-chunk recompute.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
                                       SLSTM, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.init_utils import dense, embedding, norm
@@ -39,9 +42,6 @@ from repro_torch.utils.tree import tree_map
 
 LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
 
-_LATER = {
-    MLA_ATTN: "MLA attention comes with a later LM slice",
-}
 XLSTM_KINDS = (SLSTM, MLSTM)
 
 
@@ -78,15 +78,13 @@ def compute_stages(cfg: ModelConfig) -> list[Stage]:
     return stages
 
 
+def _layer_is_moe(cfg: ModelConfig, layer_id: int) -> bool:
+    return (cfg.moe is not None
+            and layer_id >= (cfg.moe.first_dense_layers or 0))
+
+
 def _layer_kind(cfg: ModelConfig, layer_id: int) -> str:
-    kind = cfg.layer_kinds()[layer_id]
-    if kind in _LATER:
-        raise NotImplementedError(f"layer {layer_id} of {cfg.name} is "
-                                  f"{kind!r}: {_LATER[kind]}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name} has MoE FFNs: the MoE "
-                                  f"block comes with a later LM slice")
-    return kind
+    return cfg.layer_kinds()[layer_id]
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -105,7 +103,7 @@ def _dtype(cfg: ModelConfig, dtype):
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
                dtype=None) -> dict:
     dtype = _dtype(cfg, dtype)
-    kind = _layer_kind(cfg, layer_id)  # raises for kinds the port lacks
+    kind = _layer_kind(cfg, layer_id)
     if kind in XLSTM_KINDS:
         block_init = (xlstm_mod.slstm_init if kind == SLSTM
                       else xlstm_mod.mlstm_init)
@@ -113,38 +111,57 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
                 "block": block_init(gen, cfg, dtype)}
     p = {"ln1": norm(cfg.d_model, cfg.norm, dtype, gen.device),
          "ln2": norm(cfg.d_model, cfg.norm, dtype, gen.device)}
-    if kind == RGLRU:
+    if kind == MLA_ATTN:
+        p["mla"] = mla_mod.mla_init(gen, cfg, dtype)
+    elif kind == RGLRU:
         p["rec"] = rglru_mod.rglru_init(gen, cfg, dtype)
     else:
         p["attn"] = attn_mod.attn_init(gen, cfg, dtype)
-    p["mlp"] = mlp_init(gen, cfg, dtype=dtype)
+    if _layer_is_moe(cfg, layer_id):
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:
+        d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
+        p["mlp"] = mlp_init(gen, cfg, d_ff=d_ff, dtype=dtype)
     return p
 
 
 # -------------------------------------------------------- layer apply ------
+def _ffn(p, cfg: ModelConfig, h):
+    """The layer's FFN: (y, MoE aux loss, or None for a dense MLP)."""
+    if "moe" in p:
+        return moe_mod.moe_apply(p["moe"], cfg, h)
+    return mlp_apply(p["mlp"], h, cfg.act), None
+
+
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
-                impl: str = "auto"):
-    """Full-sequence layer: pre-norm attention or RG-LRU block, then the
-    MLP, both residual; or a pre-norm xLSTM block, residual.  impl "auto"
-    runs the kernels on the card, "dense" the plain versions."""
+                positions3=None, impl: str = "auto"):
+    """Full-sequence layer: pre-norm attention, MLA or RG-LRU block, then
+    the MLP or MoE FFN, both residual; or a pre-norm xLSTM block,
+    residual.  Returns (x, MoE aux loss or None).  impl "auto" runs the
+    kernels on the card, "dense" the plain versions."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == SLSTM:
-        return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h)[0]
+        return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h)[0], None
     if kind == MLSTM:
         return x + xlstm_mod.mlstm_block_apply(
-            p["block"], cfg, h, impl=impl)[0]
-    if kind == RGLRU:
+            p["block"], cfg, h, impl=impl)[0], None
+    if kind == MLA_ATTN:
+        x = x + mla_mod.mla_apply(p["mla"], cfg, h, positions=positions,
+                                  impl=impl)
+    elif kind == RGLRU:
         x = x + rglru_mod.rglru_block_apply(p["rec"], cfg, h, impl=impl)[0]
     else:
         x = x + attn_mod.attn_apply(
             p["attn"], cfg, h, window=_window(cfg, kind),
             rope_theta=_rope_theta_for(cfg, kind),
-            softcap=cfg.attn_logit_softcap, positions=positions, impl=impl)
-    h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + mlp_apply(p["mlp"], h, cfg.act)
+            softcap=cfg.attn_logit_softcap, positions=positions,
+            positions3=positions3, impl=impl)
+    y, aux = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm))
+    return x + y, aux
 
 
-def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
+def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int, *,
+                 positions3=None):
     """One-token decode through a layer, writing ``cache`` in place.
     Returns (x, cache)."""
     h = apply_norm(p["ln1"], x, cfg.norm)
@@ -153,25 +170,29 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int):
               else xlstm_mod.mlstm_block_apply)
         y, cache = fn(p["block"], cfg, h, cache=cache, index=index)
         return x + y, cache
-    if kind == RGLRU:
+    if kind == MLA_ATTN:
+        y, cache = mla_mod.mla_decode_attend(p["mla"], cfg, h, cache, index)
+    elif kind == RGLRU:
         y, cache = rglru_mod.rglru_block_apply(p["rec"], cfg, h, cache=cache,
                                                index=index)
     else:
         y, cache = attn_mod.decode_attend(
             p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
             rope_theta=_rope_theta_for(cfg, kind),
-            softcap=cfg.attn_logit_softcap)
+            softcap=cfg.attn_logit_softcap, positions3=positions3)
     x = x + y
-    h = apply_norm(p["ln2"], x, cfg.norm)
-    return x + mlp_apply(p["mlp"], h, cfg.act), cache
+    y, _ = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm))
+    return x + y, cache
 
 
 def init_layer_cache(cfg: ModelConfig, layer_id: int, batch: int,
                      max_len: int, dtype=torch.bfloat16, device="cpu"):
-    """The layer's decode cache: a KV cache in ``dtype``, or an xLSTM or
-    RG-LRU layer's recurrent state, float32 whatever ``dtype`` (as the
-    reference's ``init_*_cache``)."""
+    """The layer's decode cache: a KV cache or MLA's latent cache in
+    ``dtype``, or an xLSTM or RG-LRU layer's recurrent state, float32
+    whatever ``dtype`` (as the reference's ``init_*_cache``)."""
     kind = _layer_kind(cfg, layer_id)
+    if kind == MLA_ATTN:
+        return mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
     if kind == RGLRU:
         return rglru_mod.init_rglru_cache(cfg, batch, device)
     if kind == SLSTM:
@@ -209,7 +230,7 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
     return params
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
     # F.embedding, not table[tokens]: the indexing's backward (index_put_
     # with accumulate) sums repeated tokens in a thread-dependent order on
     # the CPU, so a resumed run would not repeat the uninterrupted one
@@ -219,6 +240,11 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
         # reference does (62.0, not 61.97, in bfloat16 at d_model 3840)
         x = x * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(x.dtype)
+    if patch_embeds is not None:
+        # the VLM's stubbed frontend: precomputed patch embeddings take
+        # the first num_patch_tokens positions of the sequence
+        n = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
     return x
 
 
@@ -234,15 +260,22 @@ def _stage_layers(cfg: ModelConfig, st: Stage, sp):
 def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
     """Full-sequence forward to final hidden states (B,S,D).
 
-    batch: {"tokens": (B,S) integer tensor}.  Returns (hidden, aux) with
-    aux the reference's MoE auxiliary loss, 0 for these block kinds.
+    batch: {"tokens": (B,S) integer tensor, and for the VLM optionally
+    "patch_embeds" (B,P,D) and "positions3" (B,S,3)}.  Returns (hidden,
+    aux) with aux the MoE auxiliary loss summed over the MoE layers
+    (float32; 0 without them).
     """
-    x = embed_tokens(params, cfg, batch["tokens"])
+    x = embed_tokens(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+    positions3 = batch.get("positions3")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, st in enumerate(compute_stages(cfg)):
         for _, p, kind in _stage_layers(cfg, st, params[f"stage{si}"]):
-            x = apply_layer(p, cfg, kind, x, impl=impl)
+            x, a = apply_layer(p, cfg, kind, x, positions3=positions3,
+                               impl=impl)
+            if a is not None:
+                aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def logits_from_hidden(params, cfg: ModelConfig, hidden):
@@ -290,11 +323,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
-                return_hidden: bool = False):
+                positions3=None, return_hidden: bool = False):
     """One decode step.  token: (B,1) integer tensor; index: current
-    position.  Writes ``cache`` in place.  Returns (logits (B,1,V), cache);
-    with return_hidden the first element is the final hidden state
-    (B,1,D) instead (the personalized-head serving path)."""
+    position; positions3: optional (B,1,3) M-RoPE ids of the token.
+    Writes ``cache`` in place.  Returns (logits (B,1,V), cache); with
+    return_hidden the first element is the final hidden state (B,1,D)
+    instead (the personalized-head serving path)."""
     x = embed_tokens(params, cfg, token)
     for si, st in enumerate(compute_stages(cfg)):
         sc = cache[f"stage{si}"]
@@ -302,7 +336,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
             c = sc[f"b{j}"]
             if st.which == "scan":
                 c = tree_map(lambda a: a[r], c)   # views: written in place
-            x, _ = decode_layer(p, cfg, kind, x, c, index)
+            x, _ = decode_layer(p, cfg, kind, x, c, index,
+                                positions3=positions3)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, cache

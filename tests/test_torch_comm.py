@@ -93,7 +93,9 @@ def test_cnn_tables_match_reference():
         _assert_same_model(got[key], want[key], key)
 
 
-LMS = ("xlstm-350m", "gemma3-12b", "recurrentgemma-2b")
+LMS = ("xlstm-350m", "gemma3-12b", "recurrentgemma-2b", "olmoe-1b-7b",
+       "deepseek-v2-236b", "qwen2-vl-7b", "command-r-plus-104b",
+       "mistral-large-123b", "gemma3-27b")
 
 
 @pytest.mark.parametrize("arch", LMS)

@@ -1,0 +1,153 @@
+"""Port parity for the MoE FFN (``repro_torch.models.moe``) against the
+reference's ``repro.models.moe``, with the reference's parameters carried
+in.
+
+``reduced()`` gives both MoE architectures 4 experts with top_k 4, so
+every token goes to every expert and the sort, the grouped matmuls and
+the combine are never really exercised.  The configs here widen it:
+olmoe-1b-7b to 8 experts, top-2; deepseek-v2-236b to 8 experts, top-3,
+with its shared expert.  Cases: a (B, S, D) prefill-shaped input, a
+decode-shaped (B, 1, D) one, and an expert that no token picks.
+
+Tolerances (float32): 1e-5 on the output, 1e-6 on the auxiliary loss,
+1e-4 on the gradients of the parameters and the input.  The combine is
+deterministic: two calls agree bit for bit.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import get_arch as j_get_arch
+from repro.models import moe as jmoe
+from repro_torch.configs.registry import get_arch
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import moe as tmoe
+from repro_torch.utils.tree import path_leaves, tree_leaves, tree_map
+
+OUT_TOL, AUX_TOL, GRAD_TOL = 1e-5, 1e-6, 1e-4
+WIDENED = {"olmoe-1b-7b": dict(num_experts=8, top_k=2),
+           "deepseek-v2-236b": dict(num_experts=8, top_k=3)}
+
+
+def widened(cfg, arch):
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, **WIDENED[arch]))
+
+
+@pytest.fixture(scope="module", params=sorted(WIDENED))
+def setup(request):
+    arch = request.param
+    j_cfg = widened(j_get_arch(arch).reduced(), arch)
+    cfg = widened(get_arch(arch).reduced(), arch)
+    jp = jmoe.moe_init(jax.random.PRNGKey(3), j_cfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return arch, j_cfg, cfg, jp, tp
+
+
+def _x(shape, seed, positive=False):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return np.abs(x) if positive else x
+
+
+def _both(setup, x, jp=None, tp=None):
+    _, j_cfg, cfg, jp0, tp0 = setup
+    jo, ja = jmoe.moe_apply(jp or jp0, j_cfg, jnp.asarray(x))
+    to, ta = tmoe.moe_apply(tp or tp0, cfg, torch.from_numpy(x))
+    return (np.asarray(jo), float(ja)), (to, ta)
+
+
+def test_widened_config_matches_reference(setup):
+    arch, j_cfg, cfg, _, tp = setup
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_cfg)
+    assert ("shared" in tp) == (arch == "deepseek-v2-236b")
+    assert cfg.moe.top_k < cfg.moe.num_experts
+
+
+def test_param_tree_matches_reference(setup):
+    _, _, cfg, _, tp = setup
+    ours = tmoe.moe_init(torch.Generator().manual_seed(0), cfg)
+    assert ({p: (tuple(t.shape), t.dtype) for p, t in path_leaves(ours)}
+            == {p: (tuple(t.shape), t.dtype) for p, t in path_leaves(tp)})
+    assert ours["router"]["w"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 256), (3, 1, 256)],
+                         ids=["prefill", "decode"])
+def test_output_and_aux_match_reference(setup, shape):
+    (jo, ja), (to, ta) = _both(setup, _x(shape, 1))
+    assert to.shape == shape and to.dtype == torch.float32
+    assert ta.dtype == torch.float32 and ta.shape == ()
+    np.testing.assert_allclose(to.numpy(), jo, rtol=OUT_TOL, atol=OUT_TOL)
+    np.testing.assert_allclose(float(ta), ja, rtol=AUX_TOL, atol=AUX_TOL)
+
+
+def test_gradients_match_reference(setup):
+    """d/d(params, x) of sum(out * w) + aux: the router's gradient comes
+    through the renormalised top-k weights and the aux loss."""
+    _, j_cfg, cfg, jp, tp = setup
+    x = _x((2, 24, 256), 2)
+    w = _x((2, 24, 256), 3)
+
+    def j_obj(p, xx):
+        o, a = jmoe.moe_apply(p, j_cfg, xx)
+        return (o * jnp.asarray(w)).sum() + a
+
+    jg_p, jg_x = jax.grad(j_obj, argnums=(0, 1))(jp, jnp.asarray(x))
+    tree = tree_map(lambda t: t.clone().requires_grad_(), tp)
+    xt = torch.from_numpy(x).requires_grad_()
+    o, a = tmoe.moe_apply(tree, cfg, xt)
+    obj = (o * torch.from_numpy(w)).sum() + a
+    paths = [path for path, _ in path_leaves(tree)]
+    grads = torch.autograd.grad(obj, [xt, *tree_leaves(tree)])
+    np.testing.assert_allclose(grads[0].numpy(), np.asarray(jg_x),
+                               rtol=GRAD_TOL, atol=GRAD_TOL)
+    want = dict(path_leaves(jax.tree.map(np.asarray, jg_p)))
+    assert set(paths) == set(want)
+    for path, g in zip(paths, grads[1:]):
+        np.testing.assert_allclose(g.numpy(), want[path], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=path)
+
+
+def test_expert_with_no_tokens(setup):
+    """A router column that loses every token (positive inputs, a large
+    negative weight): that expert's group is empty and is skipped."""
+    _, j_cfg, cfg, jp, tp = setup
+    x = _x((2, 24, 256), 4, positive=True)
+    router = np.asarray(jp["router"]["w"]).copy()
+    router[:, 5] = -1.0
+    jp2 = dict(jp, router={"w": jnp.asarray(router)})
+    tp2 = dict(tp, router={"w": torch.from_numpy(router)})
+    _, top_e, counts, _ = tmoe.route(tp2, cfg,
+                                     torch.from_numpy(x).reshape(-1, 256))
+    assert torch.equal(counts, torch.bincount(top_e.reshape(-1),
+                                              minlength=8))
+    assert counts[5] == 0 and (counts > 0).sum() >= cfg.moe.top_k
+    (jo, ja), (to, ta) = _both(setup, x, jp2, tp2)
+    np.testing.assert_allclose(to.numpy(), jo, rtol=OUT_TOL, atol=OUT_TOL)
+    np.testing.assert_allclose(float(ta), ja, rtol=AUX_TOL, atol=AUX_TOL)
+
+
+def test_combine_repeats_bit_for_bit(setup):
+    _, _, cfg, _, tp = setup
+    x = torch.from_numpy(_x((2, 24, 256), 5))
+    before = tmoe.group_size_reads
+    a, aux_a = tmoe.moe_apply(tp, cfg, x)
+    b, aux_b = tmoe.moe_apply(tp, cfg, x)
+    assert tmoe.group_size_reads == before + 2      # one host read a call
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_router_weights_renormalise_with_the_clamp(setup):
+    _, _, cfg, _, tp = setup
+    x = torch.from_numpy(_x((1, 8, 256), 6))
+    top_w, top_e, counts, _ = tmoe.route(tp, cfg, x.reshape(-1, 256))
+    assert top_w.dtype == torch.float32
+    torch.testing.assert_close(top_w.sum(-1), torch.ones(8))
+    assert bool((top_w[:, :-1] >= top_w[:, 1:]).all())   # sorted, as top_k
+    assert top_e.shape == (8, cfg.moe.top_k)
+    assert int(counts.sum()) == 8 * cfg.moe.top_k
