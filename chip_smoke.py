@@ -14,11 +14,14 @@ both training paths over the wireless network (the numpy scheduler
 oracle, the float64 cohort core on the card, FedSim's and the launcher's
 network modes: K1 and K3), and the telemetry of the CNN path and the
 launcher (traces, metrics, manifests, the kernel probes: K1 and K3),
-the Genie baseline (``centralized_sgd``), and the six decoder LMs of the
+the Genie baseline (``centralized_sgd``), the six decoder LMs of the
 MoE / MLA / M-RoPE slice served and trained (the same entry points:
 K2 in olmoe-1b-7b's attention, deepseek-v2-236b's MLA at head width
-192 and qwen2-vl-7b's M-RoPE attention).  Phases, each printing one JSON
-line (any mismatch or fault exits non-zero; no phase's failure is
+192 and qwen2-vl-7b's M-RoPE attention), and the encoder-decoder,
+seamless-m4t-medium, served and trained whole (K2 in its encoder's and
+decoder's self-attention at head width 64), with activation
+checkpointing (``remat``) in the host round.  Phases, each printing one
+JSON line (any mismatch or fault exits non-zero; no phase's failure is
 caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
@@ -40,10 +43,13 @@ caught):
    the shapes train_rglru gives it (2 and 4 x 512 tokens), head width
    192 in both dtypes, olmoe's and qwen2-vl's shapes on their paths, and
    MLA's call with v zero-padded from 128 to 192 against the plain
-   version on the unpadded v; 2e-5 in float32, 2e-2 in bfloat16,
+   version on the unpadded v, seamless's encoder (non-causal, 1024
+   frames) and decoder (causal, 2048 tokens) at head width 64 at the
+   batches its phases give them; 2e-5 in float32, 2e-2 in bfloat16,
    elementwise, and the whole case's relative error within 1e-5 /
    1e-2), and its backward against autograd of the plain version (also
-   MLA's padded call, and qwen2-vl's 7:1 GQA at 2048 tokens in bf16);
+   MLA's padded call, qwen2-vl's 7:1 GQA at 2048 tokens and seamless's
+   decoder at (6, 2048, 16, 64), both in bf16);
 5. time: K1, its plain version and its bound, with CUDA events;
 6. time_flash: K2 at the serving path's two shapes (global and
    sliding-window layers), its plain version, its bound, the fraction of
@@ -51,8 +57,8 @@ caught):
    PyTorch's ``scaled_dot_product_attention`` on the same inputs (with
    the names of the kernels it ran); then at deepseek-v2-236b's MLA
    (6,2048,128,192, v of 128: the kernel on v zero-padded to 192, the
-   plain version and SDPA on the unpadded v) and olmoe-1b-7b's
-   (6,2048,16,128);
+   plain version and SDPA on the unpadded v), olmoe-1b-7b's
+   (6,2048,16,128) and seamless-m4t-medium's decoder (6,2048,16,64);
    check_flash_backward: K2's backward at one gemma3-width layer with
    8192 tokens (past the dense recompute's 4096), global and window
    1024: the blocked recompute's and the dense one's peak memory and
@@ -65,7 +71,9 @@ caught):
    links), two global rounds then ``personalize`` with K = 10, with every
    kernel's launch count set to 0 just before and read just after;
 9. profile: where a training step's device time goes, and the device's
-   busy share;
+   busy share, with cuDNN's default algorithms and then with the
+   deterministic ones ``resolve_device`` pins (F3's repair): the step
+   time before and after;
    check_cohort: the float64 cohort decision core on the card against the
    port's numpy scheduler oracle, every RoundReport field and the carried
    state bit for bit, on the CPU tests' 20 configurations x 6 rounds at
@@ -87,15 +95,20 @@ caught):
    conv2 / fc1, 2 global rounds, then 100 slots sampled from 10**6
    clients over 4 k-means ESs, one round; the deadline the median of the
    oracle's round-0 times; K1's launches against their count;
+   fedsim_repeat: F3, the stale_greedy run again with telemetry off and a
+   run killed after round 1 and restored into a new FedSim
+   (``save``/``restore``), each bit-equal to fedsim_wireless's in rows,
+   clock, history and the global parameters' sum (on a difference, the
+   ops ``torch.use_deterministic_algorithms(warn_only=True)`` names);
    fedsim_telemetry: fedsim_wireless's stale_greedy run (2 rounds) under
    ``Telemetry(dir, kernels=True)``, counts set to 0 just before and read
    just after: the trace's client segments of the last round against the
    scheduler's timeline as exact floats, a track per scheduled client and
    4 ES tracks, ``sched.participants`` against the rows,
    ``fedsim.rounds``, K1's probe calls against its launches (312), the
-   manifest naming the card, the four files; rows, clock and history
-   equal to fedsim_wireless's (with telemetry off); the round wall times
-   beside fedsim_wireless's;
+   manifest naming the card, the four files; rows, clock, history and
+   the parameters' sum bit-equal to fedsim_wireless's (with telemetry
+   off); the round wall times beside fedsim_wireless's;
    genie: ``centralized_sgd`` over the CNN cell's pooled data
    (``CNNConfig()``, batch 32, one epoch): loss and accuracy finite,
    accuracy above chance; a small config card against CPU within
@@ -160,13 +173,18 @@ caught):
     (float32) on the card against the same call on the CPU, same
     parameters and batches, 2 rounds of 2 clients: losses, final
     parameters, head bank and both evaluations within K3's 2e-4;
+    reference_train_remat: one host round of that config on the card
+    under the reference's default remat ("full") against it without:
+    parameters and states within 2e-4 (bit-equality reported), K3 twice
+    per mLSTM layer a local step (the recompute) against once;
 21. train_xlstm: PHSFL training at xlstm-350m's published config whole
     (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 2
     rounds, then the head bank and both evaluations, counts set to 0
     just before and read just after; the head frozen bit for bit, the
     clients equal after the edge step, a positive personalization gain;
     then one local step's profile (forward and backward on the host's
-    clock, each block kind's share, busy share, kernel time by name);
+    clock, each block kind's share, busy share, kernel time by name; the
+    same step under remat "full", which runs the sLSTM's loop twice);
     train_xlstm_2048: the same checks for one round at the published
     context of 2048 tokens, 2 clients of one local step;
 22. train_rglru: recurrentgemma-2b's published widths cut to 3 layers,
@@ -204,10 +222,30 @@ caught):
     one local step of 1 x 2048 tokens (qwen2-vl's first 1024 its patch
     embeddings, with M-RoPE positions), then the head bank and both
     evaluations: K2 under autograd once per attention layer a forward;
-27. the kernels line (each kernel's launches on its serving or CNN path,
+27. reference_encdec: seamless-m4t-medium at ``reduced()`` (float32) on
+    the card against the CPU, same weights: the loss and every gradient
+    without remat, under "full" and under "dots" (K2 once per encoder and
+    decoder layer a forward, twice under remat), a 12-step greedy decode
+    from ``encode`` + ``precompute_cross``: the same tokens, all within
+    1e-5;
+28. serve_seamless: the LM path at seamless-m4t-medium's published
+    config whole (12 + 12 layers, d_model 1024, 16 heads of 64, vocab
+    256206, bf16, 0.98 B) at the serving cells' traffic, the bank's
+    batches with 1024 source frames each, counts set to 0 just before
+    and read just after: 24 K2 launches in the bank's trunk pass and 12
+    in the ``encode`` that fills the decode cache's cross half, all at
+    head width 64;
+29. train_seamless: the whole model, 2 clients x one local step of 1 x
+    2048 tokens over 1024 frames, one ``make_host_round`` without remat,
+    under the default ``TrainConfig`` ("full") and under "dots": wall
+    time, tokens/s, the round's peak and a local step's, K2 launches
+    against the count reckoned for the policy, the params equal across
+    the three, the head bank and a positive gain;
+30. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
-    phases, the telemetry phases and the zoo's, with each probe's wall
-    time), then ``{"ok": true, "device": {...}}`` as the last line.
+    phases, the telemetry phases, the zoo's and seamless's, with each
+    probe's wall time), then ``{"ok": true, "device": {...}}`` as the
+    last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are not beside this script.
@@ -358,6 +396,22 @@ TRAIN_ZOO = dict(rounds=1, clients=2, local_steps=1, micro=1, seq=2048,
 FLASH_OLMOE = dict(b=6, s=2048, h=16, kvh=16, d=128)
 FLASH_MLA = dict(b=6, s=2048, h=128, kvh=128, d=192, dv=128)
 FLASH_QWEN = dict(s=2048, h=28, kvh=4, d=128)
+
+# the encoder-decoder and remat slice: seamless-m4t-medium's attention (16
+# heads of 64, MHA) in the encoder over 1024 frames and the decoder over
+# 2048 tokens, at the head bank's 6 sequences
+FLASH_SEAMLESS_ENCODER = dict(b=6, s=1024, h=16, kvh=16, d=64)
+FLASH_SEAMLESS = dict(b=6, s=2048, h=16, kvh=16, d=64)
+# reference_encdec: reduced() (float32) on the card against the CPU, the
+# CPU tests' 1e-5, a decode of 12 steps; under each remat policy
+ENCDEC_TOL = 1e-5
+ENCDEC_STEPS = 12
+REMAT_POLICIES = {"none": {}, "full": dict(remat=True),
+                  "dots": dict(remat=True, remat_policy="dots")}
+# train_seamless: the whole model, 2 clients x one local step of 1 x 2048
+# tokens over 1024 source frames, one round through make_host_round,
+# under the reference's default TrainConfig ("full"), "dots" and none
+TRAIN_SEAMLESS = dict(clients=2, local_steps=1, micro=1, seq=2048, seed=0)
 
 
 def train_batches(kw) -> tuple:
@@ -705,18 +759,35 @@ def kernel_breakdown(torch, fn, steps):
 def phase_profile(torch, sim, steps=3):
     """Where a training step's device time goes: kernel time by name over
     a few steps of the CNN path (after its counts were read), and the
-    device's busy share of the window's wall time."""
+    device's busy share of the window's wall time.  First the same steps
+    with cuDNN free to pick its default algorithms (what
+    ``resolve_device`` set before F3's repair), then with the
+    deterministic ones it pins now: the step time before and after, in
+    one process (each after a warm-up step, where cuDNN chooses)."""
     state = {"stacked": sim._stacked}
 
     def step():
         x, y = sim._sample_minibatches(sim.t.batch_size)
         state["stacked"], _ = sim._client_step(state["stacked"], x, y)
 
-    row, by_name = kernel_breakdown(torch, step, steps)
+    rows = {}
+    try:
+        for pinned in (False, True):
+            torch.backends.cudnn.deterministic = pinned
+            step()
+            rows[pinned] = kernel_breakdown(torch, step, steps)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    (row, by_name), (before, _) = rows[True], rows[False]
     emit({"phase": "profile", **row,
           "quantize_ms_per_step": sum(
               t for k, (t, _) in by_name.items() if "qdq_f32" in k)
-          / steps / 1e3})
+          / steps / 1e3,
+          "cudnn_default": {k: before[k] for k in (
+              "wall_ms_per_step", "device_busy_ms_per_step",
+              "kernel_ms_sum_per_step", "top_kernels")},
+          "pinned_over_default_wall": row["wall_ms_per_step"]
+          / before["wall_ms_per_step"]})
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -861,6 +932,26 @@ def phase_check_flash(torch, ops, ref):
               bshkd=[b, s, h, h, ml["d"]], dv=ml["dv"], padded_v=True)
     mla_rows = rows[-3:]
     del q, k, v, got, want
+    # seamless-m4t-medium: 16 heads of 64 (MHA) in the encoder's
+    # non-causal self-attention over 1024 frames and the decoder's causal
+    # one over 2048 tokens, bf16, at the batches its paths give them (the
+    # head bank's 6 sequences, the decode cache's encode of 4, the
+    # training phase's local step of 1 and its bank's 2), and
+    # reference_encdec's float32 shapes
+    se, sd = FLASH_SEAMLESS_ENCODER, FLASH_SEAMLESS
+    seamless = [((b, se["s"], se["h"], se["kvh"], se["d"]), "bfloat16",
+                 dict(causal=False)) for b in (se["b"], 4, 2, 1)]
+    seamless += [((b, sd["s"], sd["h"], sd["kvh"], sd["d"]), "bfloat16",
+                  dict(causal=True)) for b in (sd["b"], 2, 1)]
+    seamless += [((2, 32, 4, 4, 64), "float32", dict(causal=False)),
+                 ((2, 64, 4, 4, 64), "float32", dict(causal=True))]
+    n_rows = len(rows)
+    for i, (shape, dtype, kw) in enumerate(seamless):
+        q, k, v = _flash_inputs(torch, *shape, getattr(torch, dtype),
+                                3000 + i)
+        compare(q, k, v, dtype, kw, bshkd=list(shape))
+    seamless_rows = rows[n_rows:]
+    del q, k, v
     # backward: a recompute through the port's dense path, against
     # autograd of the plain version
     q, k, v = _flash_inputs(torch, 1, 64, 4, 2, 32, torch.float32, 99)
@@ -904,6 +995,21 @@ def phase_check_flash(torch, ops, ref):
             for a, b in zip(leaves, plain)),
         all(torch.allclose(a.grad.float(), b.grad.float(), rtol=tol,
                            atol=tol) for a, b in zip(leaves, plain)))
+    # seamless's decoder at its serving shape (6, 2048, 16 heads of 64),
+    # causal, bf16: K2's backward (the dense recompute) against autograd
+    # of the plain version
+    q, k, v = _flash_inputs(torch, sd["b"], sd["s"], sd["h"], sd["kvh"],
+                            sd["d"], torch.bfloat16, 96)
+    w = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (ops.flash_attention(*leaves, causal=True) * w).float().sum().backward()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    (_flash_plain(ref, *plain, causal=True) * w).float().sum().backward()
+    zoo_grads["seamless_decoder_bfloat16"] = (
+        max(float((a.grad.float() - b.grad.float()).abs().max())
+            for a, b in zip(leaves, plain)),
+        all(torch.allclose(a.grad.float(), b.grad.float(), rtol=tol,
+                           atol=tol) for a, b in zip(leaves, plain)))
     del leaves, plain, q, k, v, w
     bad = [r for r in rows if not r["ok"]]
     emit({"phase": "check_flash", "kernel": "flash_attention",
@@ -912,7 +1018,7 @@ def phase_check_flash(torch, ops, ref):
           "max_rel_err": worst_rel, "mismatches": bad,
           "main_shapes": main_rows, "mqa_window_binds": mqa_row,
           "train_shapes": train_rows, "zoo_shapes": zoo_rows,
-          "mla_padded_v": mla_rows,
+          "mla_padded_v": mla_rows, "seamless_shapes": seamless_rows,
           "backward_max_abs_err": grad_err, "backward_ok": grad_ok,
           "zoo_backward": {name: {"max_abs_err": e, "ok": ok}
                            for name, (e, ok) in zoo_grads.items()}})
@@ -2149,7 +2255,7 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
                                 seed=4321, device="cuda")
     batch = {k: v[0] for k, v in batch.items()}          # (1, micro, seq)
     mb = {k: v[0] for k, v in batch.items()}
-    local = local_steps(model, opt, mask)
+    local = local_steps(model, opt, mask, tcfg)
     local(p1, s1, batch)                   # warm-up outside the timings
     fwd, bwd = [], []
     for _ in range(TRAIN_STEP_REPEATS):
@@ -2165,6 +2271,14 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
     held = torch.cuda.memory_allocated()
     _, step_s = sync_time(torch, lambda: local(p1, s1, batch))
     step_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    # the reference's default remat ("full") runs each checkpointed
+    # layer's forward again in the backward, the sLSTM's loop over time
+    # with it: the same step under it
+    remat_local = local_steps(model, opt, mask,
+                              dataclasses.replace(tcfg, remat=True))
+    torch.cuda.reset_peak_memory_stats()
+    _, remat_s = sync_time(torch, lambda: remat_local(p1, s1, batch))
+    remat_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     targets = {"mlstm": (xm, "mlstm_block_apply"),
                "slstm": (xm, "slstm_block_apply")}
     by_kind = seconds_by_block_kind(torch, lambda: model.loss(tree_map(
@@ -2185,6 +2299,9 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
     emit({"phase": "train_profile_xlstm", "what": "one local step of one "
           f"client: {kw['micro']} x {kw['seq']} tokens, 24 layers, bf16",
           "step_wall_s": step_s, "step_peak_GB_above_held": step_peak,
+          "remat_full_step_wall_s": remat_s,
+          "remat_full_step_peak_GB_above_held": remat_peak,
+          "remat_full_over_plain_step": remat_s / step_s,
           "forward_s": _spread(fwd),
           "backward_s": _spread(bwd),
           "forward_by_block_kind": by_kind,
@@ -2944,6 +3061,114 @@ def _history_diff(np, a, b) -> float:
                if isinstance(x[k], float))
 
 
+def _stale_greedy_network(deadline):
+    from repro_torch.models import cnn
+    return dict(COHORT_BENCH_CHANNEL, cut_policy="greedy",
+                cut_candidates=cnn.CUT_CANDIDATES, deadline_s=deadline,
+                staleness_lambda=0.5)
+
+
+def _stale_greedy_sim(data, deadline, telemetry=None):
+    """fedsim_wireless's stale_greedy cell: the CNN at full width, 4 ESs x
+    25 clients, int8 on all links, greedy cuts, lambda 0.5, ``deadline``;
+    ``telemetry`` off by default."""
+    FedSim, CNNConfig, H, T, _, link_codecs = _fedsim_parts()
+    return FedSim(CNNConfig(), data,
+                  H(num_edge_servers=4, clients_per_es=25, kappa0=5,
+                    kappa1=3),
+                  T(batch_size=32, finetune_steps=10), batches_per_epoch=5,
+                  seed=0, codecs=link_codecs("int8"),
+                  wireless=_wireless_config(_stale_greedy_network(deadline)),
+                  telemetry=telemetry)
+
+
+def _params_sum(res) -> float:
+    return float(sum(x.double().sum() for p in res.global_params.values()
+                     for x in p.values()))
+
+
+def _rounds_of(sim, rounds):
+    """Run ``sim`` to each round of ``rounds`` in turn: its network rows,
+    the last history row of each, and the last result."""
+    rows, hist = [], []
+    for r in rounds:
+        res = sim.run(rounds=r, log_every=1)
+        rows += res.network
+        hist.append(res.history[-1])
+    return rows, hist, res
+
+
+def _determinism_diagnostic(torch, data, deadline) -> list:
+    """One round of the stale_greedy cell under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the
+    first line of each warning it gives, which names an op with no
+    deterministic variant (the process-wide setting is restored after)."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _stale_greedy_sim(data, deadline).run(rounds=1, log_every=1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:240] for w in caught})
+
+
+def phase_fedsim_repeat(torch, np, data, wireless):
+    """F3: the CNN path repeats run to run on the card.  fedsim_wireless's
+    stale_greedy cell, telemetry off, run again whole (2 rounds): its
+    network rows, clock, history and the sum of its global parameters
+    bit-equal to fedsim_wireless's run; then a run killed after round 1
+    (``save``), restored into a new FedSim (``restore``) and run to round
+    2: the same, bit for bit.  On any difference, one round under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` names
+    the ops without a deterministic variant before the phase fails."""
+    off = wireless["runs"]["stale_greedy"]
+    deadline = wireless["deadline"]
+    whole = {"rows": off["network"], "history": off["history"],
+             "sim_time_s": off["sim_time_s"],
+             "params_sum": off["params_sum"]}
+    runs, walls = {}, {}
+    t0 = time.perf_counter()
+    rows, hist, res = _rounds_of(_stale_greedy_sim(data, deadline), (1, 2))
+    runs["again"] = {"rows": rows, "history": hist,
+                     "sim_time_s": res.total_sim_time_s,
+                     "params_sum": _params_sum(res)}
+    walls["again"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        first = _stale_greedy_sim(data, deadline)
+        rows1, hist1, _ = _rounds_of(first, (1,))
+        first.save(d)
+        del first
+        second = _stale_greedy_sim(data, deadline)
+        restored = second.restore(d)
+        rows2, hist2, res = _rounds_of(second, (2,))
+        del second
+    runs["resumed"] = {"rows": rows1 + rows2, "history": hist1 + hist2,
+                       "sim_time_s": res.total_sim_time_s,
+                       "params_sum": _params_sum(res)}
+    walls["resumed"] = time.perf_counter() - t0
+    equal = {name: {k: run[k] == whole[k] for k in whole}
+             for name, run in runs.items()}
+    spread = {name: {"history_max_abs_diff": _history_diff(
+                         np, run["history"], whole["history"]),
+                     "params_sum_abs_diff": abs(run["params_sum"]
+                                                - whole["params_sum"])}
+              for name, run in runs.items()}
+    ok = all(all(v.values()) for v in equal.values()) and restored == 1
+    diagnostic = None if ok else _determinism_diagnostic(torch, data,
+                                                         deadline)
+    emit({"phase": "fedsim_repeat", "cell": "fedsim_wireless stale_greedy",
+          "rounds": 2,
+          "cudnn_deterministic": torch.backends.cudnn.deterministic,
+          "cudnn_benchmark": torch.backends.cudnn.benchmark,
+          "bit_equal": equal, "spread": spread, "restored_step": restored,
+          "wall_s": walls,
+          "deterministic_algorithms_warnings": diagnostic})
+    assert ok, (equal, spread, diagnostic)
+
+
 def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
     """``fedsim_wireless``'s stale_greedy run (the CNN at full width, 4 ESs
     x 25 clients, int8 on all links, greedy cuts, lambda 0.5, the same
@@ -2951,30 +3176,20 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
     The streamed trace against the scheduler's timeline of the last round
     (exact floats), the instruments against the network rows, K1's probe
     calls against its launches, the files; the rows, the clock and the
-    history against fedsim_wireless's run with telemetry off (a second
-    run with it off gives the OFF-to-OFF spread if the history does not
-    repeat bit for bit on the card)."""
-    FedSim, CNNConfig, H, T, _, link_codecs = _fedsim_parts()
+    history against fedsim_wireless's run with telemetry off, bit for bit
+    (the card's CNN path repeats since F3's repair: fedsim_repeat)."""
     from repro_torch.models import cnn
     from repro_torch.telemetry import Telemetry
-    cfg = CNNConfig()
-    h = H(num_edge_servers=4, clients_per_es=25, kappa0=5, kappa1=3)
-    t = T(batch_size=32, finetune_steps=10)
-    bpe = 5
-    network = dict(COHORT_BENCH_CHANNEL, cut_policy="greedy",
-                   cut_candidates=cnn.CUT_CANDIDATES,
-                   deadline_s=wireless["deadline"], staleness_lambda=0.5)
+    network = _stale_greedy_network(wireless["deadline"])
     off = wireless["runs"]["stale_greedy"]
 
     def run(telemetry):
-        sim = FedSim(cfg, data, h, t, batches_per_epoch=bpe, seed=0,
-                     codecs=link_codecs("int8"),
-                     wireless=_wireless_config(network), telemetry=telemetry)
+        sim = _stale_greedy_sim(data, wireless["deadline"], telemetry)
         sched, steps = sim.scheduler, []
         step = sched.step
 
         def recorded(r):
-            t0 = telemetry.trace.clock_s if telemetry is not None else 0.0
+            t0 = telemetry.trace.clock_s
             rep = step(r)
             steps.append((t0, rep, sched.last_timeline))
             return rep
@@ -2986,14 +3201,13 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
             rows += res.network
             hist.append(res.history[-1])
             walls.append(dt)
-        psum = float(sum(x.double().sum() for p in res.global_params.values()
-                         for x in p.values()))
-        return rows, hist, walls, res.total_sim_time_s, psum, steps
+        return (rows, hist, walls, res.total_sim_time_s, _params_sum(res),
+                steps, sim)
 
     with tempfile.TemporaryDirectory() as d:
         tel = Telemetry(d, kernels=True)
         reset_counts(kernels)              # count this path's run alone
-        rows, hist, walls, sim_time, psum, steps = run(tel)
+        rows, hist, walls, sim_time, psum, steps, sim = run(tel)
         counts = read_counts(kernels)
         tel.write_manifest(config=network, seeds={"seed": 0},
                            extra={"cell": "fedsim_wireless stale_greedy"})
@@ -3007,6 +3221,8 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
     launches = counts["quantize"]
     # fedsim_wireless's count for its 2 stale_greedy rounds: 2 x (2 x 75 +
     # 3 x 2) = 312 at the cell's config
+    h, bpe = sim.h, sim.batches_per_epoch
+    del sim
     n_offload = len(cnn.client_keys_for(cnn.DEFAULT_CUT)) * 2
     steps_ = h.kappa0 * h.kappa1 * bpe
     expected = 2 * (2 * steps_ + h.kappa1 * n_offload)
@@ -3043,15 +3259,7 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
                     for u in np.flatnonzero(rp.scheduled))
     es_tracks = {e["tid"] for e in evs
                  if e["ph"] == "M" and e["pid"] == 2 and "tid" in e}
-    history_equal = hist == [row for row in off["history"]]
-    spread = None
-    if not history_equal:
-        rows2, hist2, _, _, psum2, _ = run(None)
-        spread = {"off_vs_off": _history_diff(np, hist2, off["history"]),
-                  "on_vs_off": _history_diff(np, hist, off["history"]),
-                  "params_sum_off_vs_off": abs(psum2 - off["params_sum"]),
-                  "params_sum_on_vs_off": abs(psum - off["params_sum"]),
-                  "rows_equal_off_vs_off": rows2 == off["network"]}
+    history_equal = hist == off["history"]
     emit({"phase": "fedsim_telemetry", "files": files,
           "trace_events": len(evs), "client_tracks": len(client_tracks),
           "scheduled_clients": len(scheduled), "es_tracks": sorted(es_tracks),
@@ -3072,7 +3280,8 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
           "sim_time_equal": sim_time == off["sim_time_s"],
           "history_equal": history_equal,
           "params_sum_equal": psum == off["params_sum"],
-          "off_to_off_spread": spread,
+          "on_vs_off_history_max_abs_diff": _history_diff(
+              np, hist, off["history"]),
           "round_wall_s_telemetry": walls,
           "round_wall_s_fedsim_wireless": off["walls"]})
     assert files == ["manifest.json", "metrics.jsonl", "summary.txt",
@@ -3087,12 +3296,7 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
         snap["kernel.quantize.calls"], launches, expected)
     assert man["torch"]["device_kind"] == torch.cuda.get_device_name()
     assert rows == off["network"] and sim_time == off["sim_time_s"]
-    if spread is not None:
-        # the card's CNN path does not repeat bit for bit: ON must sit
-        # within the run-to-run spread of OFF
-        assert spread["rows_equal_off_vs_off"], spread
-        assert spread["off_vs_off"] > 0, spread
-        assert spread["on_vs_off"] <= 4 * spread["off_vs_off"], spread
+    assert history_equal and psum == off["params_sum"], (hist, psum, off)
     return counts
 
 
@@ -3192,10 +3396,22 @@ def phase_genie(torch, np, data):
 def attention_layers(cfg) -> int:
     """Layers of ``cfg`` that launch K2 once a trunk forward: global,
     sliding-window and MLA attention (decoding is dense tensor code over
-    the cache, and MLA decodes in its latent form)."""
+    the cache, and MLA decodes in its latent form); in the
+    encoder-decoder every encoder layer and every decoder layer's
+    self-attention (its cross-attention takes the dense path)."""
     from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA_ATTN
+    if cfg.encdec is not None:
+        return cfg.encdec.num_encoder_layers + cfg.num_layers
     return sum(kind in (ATTN, LOCAL_ATTN, MLA_ATTN)
                for kind in cfg.layer_kinds())
+
+
+def serve_launches(cfg) -> int:
+    """K2 launches of one ``serve()``: the head bank's trunk forward, and
+    for the encoder-decoder the ``encode`` that fills the decode cache's
+    cross half."""
+    return attention_layers(cfg) + (cfg.encdec.num_encoder_layers
+                                    if cfg.encdec is not None else 0)
 
 
 def zoo_config(arch, **over):
@@ -3332,7 +3548,7 @@ def _serve_zoo(torch, kernels, cfg, name):
     counts = read_counts(kernels)
     reads = moe_mod.group_size_reads
     peak = torch.cuda.max_memory_allocated()
-    expected = attention_layers(cfg)
+    expected = serve_launches(cfg)
     finite = bool(torch.isfinite(res.logits).all()
                   and torch.isfinite(res.bank_losses).all()
                   and torch.isfinite(res.head_bank.float()).all())
@@ -3350,6 +3566,8 @@ def _serve_zoo(torch, kernels, cfg, name):
                "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
                "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
                "mla": dataclasses.asdict(cfg.mla) if cfg.mla else None,
+               "encdec": (dataclasses.asdict(cfg.encdec) if cfg.encdec
+                          else None),
                "vocab": cfg.padded_vocab, "dtype": cfg.dtype, **kw},
            "params": n_params, "init_s": init_s, "serve_wall_s": wall,
            "head_bank_s": res.bank_seconds, "decode_s": res.decode_seconds,
@@ -3568,6 +3786,341 @@ def phase_train_zoo(torch, kernels, arch, name):
     return counts
 
 
+# ------------------------------------------- encoder-decoder and remat ----
+def _loss_grads(torch, model, params, batch, dev, **kw):
+    """The loss and every gradient (numpy, in path order) of one batch on
+    ``dev``, with the model's remat keywords ``kw``."""
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    leaves = tree_map(lambda t: t.clone().requires_grad_(), params)
+    loss = model.loss(leaves, {k: torch.from_numpy(v).to(dev)
+                               for k, v in batch.items()}, **kw)
+    grads = torch.autograd.grad(loss, tree_leaves(leaves))
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def phase_reference_encdec(torch, np, kernels):
+    """seamless-m4t-medium at ``reduced()`` (2 encoder and 2 decoder
+    layers, d_model 256, 4 heads of 64, 32 source frames, float32) on the
+    card against the CPU, same weights: the loss and every gradient with
+    ``remat`` off, under "full" and under "dots" (K2 once per encoder
+    and decoder layer a forward, twice under remat: the backward's
+    recompute), each within ENCDEC_TOL, the CPU tests' 1e-5; whether the
+    card's remat gradients equal its plain ones bit for bit; then a
+    12-step greedy decode from ``encode`` + ``precompute_cross`` over the
+    same frames: the same tokens, the logits within 1e-5."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    cfg = get_arch("seamless-m4t-medium").reduced()
+    model = build_model(cfg)
+    params = model.init(make_generator(0, "cpu"))
+    card = tree_map(lambda t: t.cuda(), params)
+    r = np.random.default_rng(1)
+    toks = r.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1),
+             "source_embeds": (0.02 * r.normal(size=(
+                 2, cfg.encdec.max_source_len, cfg.d_model))).astype(
+                 np.float32)}
+    rows, card_grads = {}, {}
+    for name, kw in REMAT_POLICIES.items():
+        reset_counts(kernels)
+        loss_c, grads_c = _loss_grads(torch, model, card, batch, "cuda",
+                                      **kw)
+        counts = read_counts(kernels)
+        loss_h, grads_h = _loss_grads(torch, model, params, batch, "cpu",
+                                      **kw)
+        expected = attention_layers(cfg) * (2 if kw else 1)
+        rows[name] = {
+            "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_abs_diff": abs(loss_c - loss_h),
+            "grad_max_abs_diff": max(float(np.abs(a - b).max())
+                                     for a, b in zip(grads_c, grads_h)),
+            "flash_launches": counts["flash_attention"],
+            "flash_launches_expected": expected}
+        card_grads[name] = grads_c
+        np.testing.assert_allclose(loss_c, loss_h, rtol=ENCDEC_TOL,
+                                   atol=ENCDEC_TOL, err_msg=name)
+        for a, b in zip(grads_c, grads_h):
+            np.testing.assert_allclose(a, b, rtol=ENCDEC_TOL,
+                                       atol=ENCDEC_TOL, err_msg=name)
+        assert counts["flash_attention"] == expected, (name, counts)
+    for name in ("full", "dots"):
+        rows[name]["card_grads_bit_equal_to_none"] = all(
+            np.array_equal(a, b)
+            for a, b in zip(card_grads[name], card_grads["none"]))
+    logits, tokens = {}, {}
+    for dev, p in (("cuda", card), ("cpu", params)):
+        cache = model.init_cache(2, ENCDEC_STEPS, dtype=torch.float32,
+                                 device=dev)
+        out, gen = [], []
+        with torch.no_grad():
+            src = torch.from_numpy(batch["source_embeds"]).to(dev)
+            cache["cross"] = encdec.precompute_cross(
+                p, cfg, encdec.encode(p, cfg, src), dtype=torch.float32)
+            tok = torch.from_numpy(toks[:, :1]).to(dev)
+            for i in range(ENCDEC_STEPS):
+                lg, cache = model.decode_step(p, tok, cache, i)
+                out.append(lg.cpu().numpy())
+                tok = lg[..., :cfg.vocab_size].argmax(-1).to(torch.int32)
+                gen.append(tok.cpu().numpy())
+        logits[dev], tokens[dev] = np.stack(out), np.stack(gen)
+    same_tokens = np.array_equal(tokens["cuda"], tokens["cpu"])
+    decode_diff = float(np.abs(logits["cuda"] - logits["cpu"]).max())
+    emit({"phase": "reference_encdec", "config": cfg.name,
+          "dtype": cfg.dtype, "tol": ENCDEC_TOL, "policies": rows,
+          "decode_steps": ENCDEC_STEPS, "decode_same_tokens": same_tokens,
+          "decode_logits_max_abs_diff": decode_diff})
+    assert same_tokens, "decoded tokens differ"
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"],
+                               rtol=ENCDEC_TOL, atol=ENCDEC_TOL)
+    return {name: row["flash_launches"] for name, row in rows.items()}
+
+
+def phase_serve_seamless(torch, kernels):
+    """The LM path at seamless-m4t-medium's published config whole (12
+    encoder and 12 decoder layers, d_model 1024, 16 heads of 64, d_ff
+    4096, vocab 256206 padded to 256256, bf16, about 0.98 B parameters)
+    at the serving cells' traffic (batch 4, 3 profiles, prompt 16, 16
+    tokens, the bank 4 steps a client on 2 x 2048 decoder tokens over
+    1024 source frames of 0.02), counts set to 0 just before and read
+    just after: K2 24 times in the bank's trunk pass (every encoder and
+    decoder self-attention layer) and 12 in the ``encode`` that fills the
+    decode cache's cross half, all at head width 64."""
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("seamless-m4t-medium")
+    _, _, _, row = _serve_zoo(torch, kernels, cfg, "serve_seamless")
+    row["flash_launches_expected_from"] = (
+        "bank trunk pass: encoder + decoder layers; encode for the cross "
+        "cache: encoder layers")
+    emit(row)
+    assert row["launches"]["flash_attention"] == 24 + 12, row["launches"]
+    assert row["flash_head_widths_qv"] == [(64, 64)], row
+    return row
+
+
+def phase_train_seamless(torch, kernels):
+    """PHSFL training of seamless-m4t-medium whole (bf16, about 0.98 B
+    parameters): 2 clients in one ES, one local step each on 1 x 2048
+    decoder tokens over 1024 source frames of 0.02, one round through
+    ``make_host_round``, three times from the same parameters and batch:
+    without remat, under the reference's default ``TrainConfig`` (remat
+    "full") and under "dots".  Then each round's global model's head bank
+    (Eq. 18, the default 10 steps at 0.01) and both evaluations on the
+    seed-777 batch.  Per round: wall time and tokens/s; peak memory (reset
+    before the round) and the peak above what was allocated before it; K2
+    launches against the count reckoned for the policy (once per encoder
+    and decoder layer a local step's forward, twice under remat: the
+    backward's recompute; the bank's trunk pass and the two evaluations
+    once each); the params after the round against the round without
+    remat within the host round's tolerance (bit-equality reported); the
+    head bit for bit, the clients equal, a positive personalization
+    gain.  The round's peak is its edge step's, whatever the policy, so
+    one local step on client 0's batch is timed and its peak read apart,
+    and what one micro-batch's forward keeps for the backward (the bytes
+    still allocated after its loss): what the policy saves."""
+    from repro_torch.configs.base import HierarchyConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.personalize import (personalize_head_bank,
+                                              personalized_eval)
+    from repro_torch.core.phsfl import (build_optimizer, local_steps,
+                                        make_host_round, stack_replicas)
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import path_leaves, tree_leaves, tree_map
+    cfg = get_arch("seamless-m4t-medium")
+    kw = TRAIN_SEAMLESS
+    C, k = kw["clients"], kw["local_steps"]
+    model = build_model(cfg)
+    one = model.init(make_generator(kw["seed"], "cuda"))
+    head0 = one["lm_head"]["w"].clone()
+    n_params = sum(t.numel() for t in tree_leaves(one))
+    hcfg = HierarchyConfig(num_edge_servers=1, clients_per_es=C, kappa0=k,
+                           kappa1=1)
+    batch = _client_round_batch(cfg, C, k, kw["micro"], kw["seq"],
+                                seed=kw["seed"], device="cuda")
+    ft = {n: v[:, 0] for n, v in _client_round_batch(
+        cfg, C, 1, kw["micro"], kw["seq"], seed=777, device="cuda").items()}
+    au = torch.full((C,), 1.0 / C, dtype=torch.float32, device="cuda")
+    ab = torch.ones((C,), dtype=torch.float32, device="cuda")
+    per_forward = attention_layers(cfg)
+    tokens = C * k * kw["micro"] * kw["seq"]
+    rows, counts_by_policy, base = {}, {}, None
+    for name, tcfg in (("none", TrainConfig(remat=False)),
+                       ("full", TrainConfig()),
+                       ("dots", TrainConfig(remat_policy="dots"))):
+        opt, mask = build_optimizer(model, tcfg, params=one)
+        params = stack_replicas(one, C)
+        state = stack_replicas(opt.init(one), C)
+        round_ = make_host_round(model, hcfg, tcfg, num_clients=C,
+                                 global_sync=False)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)              # count this path's run alone
+        (p, _, metrics), wall = sync_time(
+            torch, lambda: round_.fn(params, state, batch, au, ab))
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        del params, state
+        loss = float(metrics["loss"])
+        gp = tree_map(lambda x: x[0], p)
+        reset_counts(kernels)
+        (bank, ft_losses), bank_s = sync_time(
+            torch, lambda: personalize_head_bank(model, gp, ft, tcfg))
+        pers = personalized_eval(model, gp, bank, ft)
+        glob = personalized_eval(model, gp, gp["lm_head"]["w"][None].expand(
+            bank.shape), ft)
+        bank_counts = read_counts(kernels)
+        gain = float((glob - pers).mean())
+        # the round's peak is its edge step's (float32 copies of the
+        # stacked 262M-row embedding and head); a local step alone on
+        # client 0's batch shows what the policy keeps for the backward
+        local = local_steps(model, opt, mask, tcfg)
+        mb = {n: v[0] for n, v in batch.items()}
+        s0 = opt.init(one)
+        torch.cuda.synchronize()
+        step_held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, step_s = sync_time(torch, lambda: local(one, s0, mb))
+        step_peak = torch.cuda.max_memory_allocated() - step_held
+        # that peak is the SGD update's (gradients, updates and new
+        # parameters, 1.96 GB each) once remat frees the activations; what
+        # the forward keeps for the backward is read after the loss
+        leaves = tree_map(lambda x, m: x.detach().requires_grad_(m), one,
+                          mask)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        kept = model.loss(leaves, {n: v[0] for n, v in mb.items()},
+                          remat=tcfg.remat, remat_policy=None
+                          if tcfg.remat_policy == "full"
+                          else tcfg.remat_policy)
+        saved = torch.cuda.memory_allocated() - before
+        del kept, leaves
+        factor = 2 if tcfg.remat else 1
+        expected = C * k * per_forward * factor
+        if base is None:
+            base, diff, bit_equal = p, 0.0, True
+        else:
+            pairs = list(zip(tree_leaves(p), tree_leaves(base)))
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in pairs)
+            bit_equal = all(torch.equal(a, b) for a, b in pairs)
+            for (path, a), b in zip(path_leaves(p), tree_leaves(base)):
+                assert torch.allclose(a.float(), b.float(), rtol=2e-5,
+                                      atol=2e-6), (name, path)
+        rows[name] = {
+            "remat": tcfg.remat, "remat_policy": tcfg.remat_policy,
+            "round_wall_s": wall, "tokens_per_s": tokens / wall,
+            "peak_mem_GB": peak / 1e9,
+            "peak_above_round_inputs_GB": (peak - held) / 1e9,
+            "local_step_wall_s": step_s,
+            "local_step_peak_above_held_GB": step_peak / 1e9,
+            "forward_saved_for_backward_GB": saved / 1e9,
+            "loss": loss, "launches": counts,
+            "flash_launches_expected": expected,
+            "bank_s": bank_s, "bank_launches": bank_counts,
+            "bank_flash_launches_expected": 3 * per_forward,
+            "finetune_losses": ft_losses.cpu().tolist(),
+            "personalization_gain": gain,
+            "params_max_abs_diff_vs_none": diff,
+            "params_bit_equal_to_none": bit_equal,
+            "head_frozen": _heads_frozen(torch, p, head0),
+            "clients_equal": _replicas_equal(torch, p)}
+        counts_by_policy[name] = counts
+        del p, gp, bank, pers, glob
+        assert math.isfinite(loss), (name, loss)
+        assert rows[name]["head_frozen"] and rows[name]["clients_equal"], name
+        assert counts["flash_attention"] == expected, (name, counts)
+        assert bank_counts["flash_attention"] == 3 * per_forward, (
+            name, bank_counts)
+        assert (counts["quantize"] == counts["mlstm_chunk"]
+                == counts["rglru_scan"] == 0), counts
+        assert gain > 0, (name, gain)
+    emit({"phase": "train_seamless", "config": {
+              "arch": cfg.name, "encoder_layers":
+                  cfg.encdec.num_encoder_layers,
+              "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+              "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+              "source_frames": cfg.encdec.max_source_len,
+              "vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+              "edge_servers": 1, **kw},
+          "params": n_params, "tokens_per_round": tokens,
+          "flash_launches_expected_from": "clients x local steps x "
+          "(encoder + decoder layers) x (2 under remat: the recompute)",
+          "rounds": rows})
+    return counts_by_policy
+
+
+def phase_reference_train_remat(torch, np, kernels):
+    """One host round at reference_train's config (xlstm-350m.reduced(),
+    float32: K3's float32 route; 2 clients x 2 local steps of 2 x 64
+    tokens, lr 0.05) on the card under the reference's default remat
+    ("full") against the same round without it: the parameters, optimizer
+    states and loss within TRAIN_TOL (bit-equality reported).  Counts set
+    to 0 just before each round and read just after: K3 once per mLSTM
+    layer a local step's forward, twice under remat (the backward's
+    recompute)."""
+    from repro_torch.configs.base import MLSTM, HierarchyConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import (build_optimizer, make_host_round,
+                                        stack_replicas)
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves
+    kw = TRAIN_REFERENCE
+    cfg = get_arch("xlstm-350m").reduced()
+    C, k = kw["clients"], kw["local_steps"]
+    model = build_model(cfg)
+    one = model.init(make_generator(kw["seed"], "cuda"))
+    hcfg = HierarchyConfig(num_edge_servers=1, clients_per_es=C, kappa0=k,
+                           kappa1=1)
+    batch = _client_round_batch(cfg, C, k, kw["micro"], kw["seq"],
+                                seed=kw["seed"], device="cuda")
+    au = torch.full((C,), 1.0 / C, dtype=torch.float32, device="cuda")
+    ab = torch.ones((C,), dtype=torch.float32, device="cuda")
+    n_mlstm = sum(kind == MLSTM for kind in cfg.layer_kinds())
+    out, counts, walls = {}, {}, {}
+    for name, remat in (("full", True), ("none", False)):
+        tcfg = TrainConfig(learning_rate=kw["lr"], remat=remat)
+        opt, _ = build_optimizer(model, tcfg, params=one)
+        round_ = make_host_round(model, hcfg, tcfg, num_clients=C,
+                                 global_sync=False)
+        params = stack_replicas(one, C)
+        state = stack_replicas(opt.init(one), C)
+        reset_counts(kernels)              # count this path's run alone
+        out[name], walls[name] = sync_time(
+            torch, lambda: round_.fn(params, state, batch, au, ab))
+        counts[name] = read_counts(kernels)
+    (pr, sr, mr), (pn, sn, mn) = out["full"], out["none"]
+    pairs = (list(zip(tree_leaves(pr), tree_leaves(pn)))
+             + list(zip(tree_leaves(sr), tree_leaves(sn))))
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    expected = {name: C * k * n_mlstm * f
+                for name, f in (("full", 2), ("none", 1))}
+    emit({"phase": "reference_train_remat", "config": cfg.name,
+          "dtype": cfg.dtype, **kw, "rounds": 1,
+          "loss": {"full": float(mr["loss"]), "none": float(mn["loss"])},
+          "round_wall_s": walls, "launches": counts,
+          "mlstm_launches_expected": expected,
+          "params_state_max_abs_diff": diff, "bit_equal": bit_equal,
+          "tol": TRAIN_TOL})
+    np.testing.assert_allclose(float(mr["loss"]), float(mn["loss"]),
+                               **TRAIN_TOL)
+    for a, b in pairs:
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   **TRAIN_TOL)
+    for name in ("full", "none"):
+        assert counts[name]["mlstm_chunk"] == expected[name], (name, counts)
+        assert (counts[name]["quantize"] == counts[name]["flash_attention"]
+                == counts[name]["rglru_scan"] == 0), counts
+    return counts["full"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3602,6 +4155,9 @@ def main() -> int:
         "olmoe-1b-7b": phase_time_flash(
             torch, fa_ops, fa_ref, m=FLASH_OLMOE, layers={"global": 0},
             arch="olmoe-1b-7b")["global"]}
+    seamless_timing = phase_time_flash(
+        torch, fa_ops, fa_ref, m=FLASH_SEAMLESS, layers={"global": 0},
+        arch="seamless-m4t-medium")["global"]
     flash_backward = phase_check_flash_backward(torch, fa_ops)
     phase_reference(np)
     launches, sim = phase_fedsim(torch, np, kernels)
@@ -3614,6 +4170,7 @@ def main() -> int:
     wireless_launches_, wireless_run = phase_fedsim_wireless(
         torch, np, kernels, data)
     wireless_counts = {"fedsim_wireless": wireless_launches_}
+    phase_fedsim_repeat(torch, np, data, wireless_run)
     telemetry_counts = {"fedsim_telemetry": phase_fedsim_telemetry(
         torch, np, kernels, data, wireless_run)}
     del wireless_run
@@ -3640,6 +4197,8 @@ def main() -> int:
     rglru_launches, rg_flash_launches = phase_serve_rglru(torch, kernels)
     train_counts = {"reference_train": phase_reference_train(torch, np,
                                                              kernels)}
+    train_counts["reference_train_remat"] = phase_reference_train_remat(
+        torch, np, kernels)
     train_counts["train_xlstm"] = phase_train_xlstm(torch, kernels)
     train_counts["train_xlstm_2048"] = phase_train_xlstm(
         torch, kernels, TRAIN_XLSTM_CONTEXT, "train_xlstm_2048",
@@ -3657,6 +4216,10 @@ def main() -> int:
         torch, kernels, "qwen2-vl-7b", "train_qwen2vl")
     train_counts["train_olmoe"] = phase_train_zoo(
         torch, kernels, "olmoe-1b-7b", "train_olmoe")
+    encdec_launches = phase_reference_encdec(torch, np, kernels)
+    seamless_serving = phase_serve_seamless(torch, kernels)
+    for policy, counts in phase_train_seamless(torch, kernels).items():
+        train_counts[f"train_seamless_{policy}"] = counts
 
     def train_launches(name):
         """Each training phase's launches of one kernel, as it read them."""
@@ -3734,7 +4297,21 @@ def main() -> int:
                                            "bound_ms", "bound_by",
                                            "library_ms",
                                            "library_kernels")}}
-               for arch, t in zoo_timing.items()}}}, {
+               for arch, t in zoo_timing.items()}},
+        "seamless": {
+            "launches": {
+                "reference_encdec": encdec_launches,
+                "serve_seamless":
+                    seamless_serving["launches"]["flash_attention"],
+                "train_seamless": {
+                    policy: train_counts[f"train_seamless_{policy}"][
+                        "flash_attention"]
+                    for policy in ("none", "full", "dots")}},
+            "head_widths_qv": seamless_serving["flash_head_widths_qv"],
+            "shape": "decoder: q, k, v (6,2048,16,64) bf16, causal",
+            **{k: seamless_timing[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_kernels")}}}, {
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/hopper/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Holds the architectures whose every block kind the port can run.  The
-reference registry (``repro.configs.registry``) knows one more, the
-encoder-decoder; asking for it raises a ``KeyError`` that names what the
-port still lacks.
+Holds every architecture of the reference registry
+(``repro.configs.registry``).  ``NOT_PORTED`` names any the port cannot
+run yet, with what it lacks; asking for one raises a ``KeyError`` that
+says so.  It is empty: the encoder-decoder closed the zoo.
 """
 
 from __future__ import annotations
@@ -11,21 +11,18 @@ from __future__ import annotations
 from repro_torch.configs import (command_r_plus_104b, deepseek_v2_236b,
                                  gemma3_12b, gemma3_27b, mistral_large_123b,
                                  olmoe_1b_7b, qwen2_vl_7b, recurrentgemma_2b,
-                                 xlstm_350m)
+                                 seamless_m4t_medium, xlstm_350m)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (command_r_plus_104b, olmoe_1b_7b, mistral_large_123b,
               qwen2_vl_7b, xlstm_350m, gemma3_27b, recurrentgemma_2b,
-              gemma3_12b, deepseek_v2_236b)
+              gemma3_12b, seamless_m4t_medium, deepseek_v2_236b)
 }
 
-# the reference's other architecture, and what it needs beyond the
-# decoder LMs
-NOT_PORTED: dict[str, str] = {
-    "seamless-m4t-medium": "the encoder-decoder model",
-}
+# reference architectures the port cannot run yet, and what each lacks
+NOT_PORTED: dict[str, str] = {}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -39,18 +39,22 @@ from repro_torch.optim import (apply_updates, make_optimizer, masked,
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
-def local_steps(model: Model, opt, mask):
+def local_steps(model: Model, opt, mask, tcfg: TrainConfig):
     """One client's kappa0 local SGD steps, the reference's ``_local_scan``
-    as a loop.  Frozen leaves (mask False) take no gradient (a broadcast
-    zero stands in for it) and are returned as they are: their update is
-    zero either way."""
+    as a loop, with its activation checkpointing (``tcfg.remat``; policy
+    "full" is the wrapper's default, None).  Frozen leaves (mask False)
+    take no gradient (a broadcast zero stands in for it) and are returned
+    as they are: their update is zero either way."""
+    policy = None if tcfg.remat_policy == "full" else tcfg.remat_policy
+
     def run(p, s, batch_c):
         losses = []
         for k in range(batch_c["tokens"].shape[0]):
             mb = {name: v[k] for name, v in batch_c.items()}
             leaves = tree_map(lambda x, m: x.detach().requires_grad_(m),
                               p, mask)
-            loss = model.loss(leaves, mb)
+            loss = model.loss(leaves, mb, remat=tcfg.remat,
+                              remat_policy=policy)
             got = iter(torch.autograd.grad(
                 loss, [t for t in tree_leaves(leaves) if t.requires_grad],
                 allow_unused=True))
@@ -114,11 +118,6 @@ def make_host_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
     unmasked round.  ``cut`` declares the split boundary (a Remark-2
     no-op on numerics).
     """
-    if tcfg.remat:
-        raise NotImplementedError(
-            "activation checkpointing of the trunk (TrainConfig.remat) "
-            "comes with a later slice of the port (ROADMAP.md §1 item 6); "
-            "pass remat=False")
     B = hcfg.num_edge_servers
     if num_clients % B:
         raise ValueError(f"{num_clients} clients do not split into {B} ESs")
@@ -176,7 +175,7 @@ def make_host_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
     def round_body(params, opt_state, batch, au, ab, mask):
         if not built:
             built.append(local_steps(model, *build_optimizer(
-                model, tcfg, cut, params=params)))
+                model, tcfg, cut, params=params), tcfg))
         local = built[0]
         new_p = tree_map(torch.empty_like, params)
         new_s = tree_map(torch.empty_like, opt_state)

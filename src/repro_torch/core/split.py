@@ -65,9 +65,16 @@ def split_spec_for(cfg, cut=None) -> SplitSpec:
         raise TypeError(f"no split for {type(cfg).__name__}")
     n_client = cfg.n_client_layers if cut is None else int(cut)
     if cfg.encdec is not None:
-        raise NotImplementedError(
-            f"{cfg.name} is an encoder-decoder: its frontend-based split "
-            f"comes with that model in a later slice")
+        # client side = the modality frontend projection + the token
+        # embedding; the split is not depth-parameterized, so a depth cut
+        # that expects to move the boundary fails rather than no-ops
+        if cut is not None and int(cut) != cfg.n_client_layers:
+            raise ValueError(
+                "encoder-decoder archs have a frontend-based split; "
+                "cut-depth candidates are not supported")
+        return SplitSpec(
+            client_patterns=(r"^src_proj(/|$)", r"^embed(/|$)"),
+            head_patterns=(rf"^{cfg.head_name}(/|$)",))
     # decoder LMs: compute_stages puts the first n_client_layers in the
     # unscanned stage0 ("lead"); they and the embedding form w_0
     from repro_torch.models.transformer import compute_stages

@@ -16,7 +16,16 @@ def resolve_device(device=None) -> torch.device:
     On the card path this also pins float32 numerics: cuDNN convolutions
     otherwise run in TF32 (about three decimal digits), while the JAX
     reference computes in full float32.  Matmuls are pinned too, so the
-    setting does not depend on what the process set before."""
+    setting does not depend on what the process set before.  cuDNN is
+    pinned to deterministic algorithms, chosen by its heuristics rather
+    than by timing (``benchmark`` off): its default weight gradient for
+    the CNN's grouped convolutions (``wgrad_alg0_engine``) accumulates
+    with atomics in a run-dependent order, so two runs of one FedSim
+    cell differed in the last bits and a resumed run did not repeat the
+    whole one.  The process-wide ``torch.use_deterministic_algorithms``
+    stays off: the code that needs a fixed order already has one (the
+    wireless core's ordered sums, ``wireless/scheduler_core.py``), and the
+    switch would raise on ops that need none."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +35,8 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -32,6 +32,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.personalize import personalize_head_bank
 from repro_torch.data.synthetic import synthetic_token_batch
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models.layers import softcap
 from repro_torch.models.registry import build_model
 from repro_torch.telemetry import MetricLogger
@@ -77,7 +78,11 @@ def serve(cfg: ModelConfig, *, params=None, batch: int = 4, steps: int = 16,
     ``bank_seq`` tokens), then decode ``batch`` requests of a
     ``prompt_len`` prompt for ``steps`` tokens, each request through its
     client's head.  ``params`` defaults to a random init from ``seed``,
-    drawn on the device."""
+    drawn on the device.  For the encoder-decoder, the stubbed frontend's
+    source frames of 0.02 (``max_source_len`` of them) go with each bank
+    sequence, and ``encode`` + ``precompute_cross`` over frames of the
+    same value fill the decode cache's cross half, as the reference
+    serves it."""
     dev = resolve_device(device)
     log = log or MetricLogger("serve")
     model = build_model(cfg)
@@ -90,6 +95,10 @@ def serve(cfg: ModelConfig, *, params=None, batch: int = 4, steps: int = 16,
            for c in range(clients)]
     batches = {k: torch.from_numpy(np.stack([nb[k] for nb in nbs])).to(dev)
                for k in nbs[0]}
+    if cfg.encdec is not None:              # the stubbed audio frontend
+        batches["source_embeds"] = torch.full(
+            (clients, 2, cfg.encdec.max_source_len, cfg.d_model), 0.02,
+            dtype=torch.float32, device=dev)
     t0 = _synced_clock(dev)
     head_bank, bank_losses = personalize_head_bank(model, params, batches,
                                                    tcfg)
@@ -105,6 +114,14 @@ def serve(cfg: ModelConfig, *, params=None, batch: int = 4, steps: int = 16,
     bank32 = head_bank.to(torch.float32)
     cache = model.init_cache(batch, prompt_len + steps, dtype=torch.float32,
                              device=dev)
+    if cfg.encdec is not None:
+        # the cross half of the cache, from the encoder over the frames
+        src = torch.full((batch, cfg.encdec.max_source_len, cfg.d_model),
+                         0.02, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            cache["cross"] = encdec.precompute_cross(
+                params, cfg, encdec.encode(params, cfg, src),
+                dtype=torch.float32)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(dev)
 

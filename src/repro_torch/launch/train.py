@@ -62,13 +62,11 @@ def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
     """Stacked per-client batches (C, k, micro, seq); each client gets a
     DIFFERENT token distribution (client id shifts the vocab) => non-IID
     federated data.  The reference's numpy streams, element for
-    element.  A VLM's batch adds its stubbed frontend's inputs as the
-    reference builds them: patch embeddings of 0.02 (C, k, micro, P, D)
-    float32 and M-RoPE positions (C, k, micro, seq, 3), the token index in
-    all three streams."""
-    if cfg.encdec is not None:
-        raise NotImplementedError(f"{cfg.name}'s frontend inputs come with "
-                                  f"its model in a later slice")
+    element.  A stubbed frontend's inputs join the batch as the reference
+    builds them: the encoder-decoder's source frames of 0.02 (C, k, micro,
+    max_source_len, D) float32; the VLM's patch embeddings of 0.02 (C, k,
+    micro, P, D) float32 and M-RoPE positions (C, k, micro, seq, 3), the
+    token index in all three streams."""
     toks, labs = [], []
     for c in range(C):
         nb = synthetic_token_batch(seed * 1000 + c, k * micro, seq,
@@ -78,6 +76,10 @@ def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
         labs.append((nb["labels"] + shift) % cfg.vocab_size)
     batch = {name: torch.from_numpy(np.stack(a)).reshape(C, k, micro, seq)
              .to(device) for name, a in (("tokens", toks), ("labels", labs))}
+    if cfg.encdec is not None:
+        batch["source_embeds"] = torch.full(
+            (C, k, micro, cfg.encdec.max_source_len, cfg.d_model), 0.02,
+            dtype=torch.float32, device=device)
     if cfg.vlm is not None:
         batch["patch_embeds"] = torch.full(
             (C, k, micro, cfg.vlm.num_patch_tokens, cfg.d_model), 0.02,

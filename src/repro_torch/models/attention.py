@@ -14,6 +14,12 @@ Path selection (``impl``):
     positions), so its live memory is O(Q_CHUNK x keys), not O(S^2).
   - decode (one token): dense tensor code over the cache, as in the
     reference; no kernel.
+  - cross-attention (``attn_apply(kv_override=)``, the encoder-decoder's
+    decoder over the encoder's memory): the dense path whatever
+    ``impl``.  Its queries and keys have different lengths, which K2
+    (like the reference's Pallas kernel) does not take; the reference's
+    "auto" sends it to its dense path too (at most ``DENSE_MAX_SEQ``
+    query rows, the lengths the zoo runs).
 
 Layouts as the reference: x (B,S,D); q (B,S,H,hd), k/v (B,S,KV,hd);
 weights q (D,H,hd), k/v (D,KV,hd), o (H*hd, D).
@@ -61,19 +67,20 @@ def _proj(x, w):
     return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
+def _project(p, cfg: ModelConfig, x, name: str):
+    """x: (B,S,D) -> the ``name`` ("q", "k" or "v") heads (B,S,heads,hd),
+    with its bias, and for q and k the qk-norm where the config has it."""
+    t = _proj(x, p[name]["w"])
+    if cfg.attn_bias:
+        t = t + p[name]["b"]
+    if cfg.qk_norm and name != "v":
+        t = apply_norm(p[f"{name}_norm"], t, "rmsnorm")
+    return t
+
+
 def _project_qkv(p, cfg: ModelConfig, x):
     """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd)."""
-    q = _proj(x, p["q"]["w"])
-    k = _proj(x, p["k"]["w"])
-    v = _proj(x, p["v"]["w"])
-    if cfg.attn_bias:
-        q = q + p["q"]["b"]
-        k = k + p["k"]["b"]
-        v = v + p["v"]["b"]
-    if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q, "rmsnorm")
-        k = apply_norm(p["k_norm"], k, "rmsnorm")
-    return q, k, v
+    return tuple(_project(p, cfg, x, name) for name in ("q", "k", "v"))
 
 
 def _out_proj(p, cfg: ModelConfig, o):
@@ -149,31 +156,62 @@ def self_attention(q, k, v, *, causal: bool = True, window: int = 0,
                      f"use 'auto', 'flash' or 'dense'")
 
 
-def _rotate(q, k, cfg: ModelConfig, theta: float, positions, positions3):
-    """RoPE on q and k at ``positions`` (B,S), or M-RoPE at ``positions3``
-    (B,S,3) when given (the VLM's text and patch positions)."""
+def _rotate_one(x, cfg: ModelConfig, theta: float, positions, positions3):
+    """RoPE on x (q or k) at ``positions`` (B,S), or M-RoPE at
+    ``positions3`` (B,S,3) when given (the VLM's text and patch
+    positions)."""
     if positions3 is not None:
-        sections = cfg.vlm.mrope_sections
-        return (apply_mrope(q, positions3, theta, sections),
-                apply_mrope(k, positions3, theta, sections))
-    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+        return apply_mrope(x, positions3, theta, cfg.vlm.mrope_sections)
+    return apply_rope(x, positions, theta)
+
+
+def _rotate(q, k, cfg: ModelConfig, theta: float, positions, positions3):
+    """``_rotate_one`` on q and on k."""
+    return (_rotate_one(q, cfg, theta, positions, positions3),
+            _rotate_one(k, cfg, theta, positions, positions3))
 
 
 def attn_apply(p, cfg: ModelConfig, x, *, window: int = 0,
                rope_theta: float = 10000.0, softcap: float = 0.0,
                positions=None, positions3=None, causal: bool = True,
-               impl: str = "auto"):
+               kv_override=None, impl: str = "auto"):
     """Full-sequence attention sublayer: proj -> rope (M-RoPE with
-    ``positions3``) -> attn -> out proj."""
+    ``positions3``) -> attn -> out proj.
+
+    kv_override: (k, v) from another sequence (cross-attention, from
+    ``cross_kv``): only q is projected and rotated, and attention is the
+    dense path (module docstring)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
+    if kv_override is not None:
+        q = _project(p, cfg, x, "q")
+        k, v = kv_override
+    else:
+        q, k, v = _project_qkv(p, cfg, x)
     if rope_theta or positions3 is not None:
         pos = positions if positions is not None \
             else torch.arange(s, device=x.device)[None].expand(b, s)
-        q, k = _rotate(q, k, cfg, rope_theta, pos, positions3)
-    out = self_attention(q, k, v, causal=causal, window=window,
-                         softcap=softcap, impl=impl)
+        if kv_override is None:
+            q, k = _rotate(q, k, cfg, rope_theta, pos, positions3)
+        else:                   # the memory's keys take no rotation
+            q = _rotate_one(q, cfg, rope_theta, pos, positions3)
+    if kv_override is None:
+        out = self_attention(q, k, v, causal=causal, window=window,
+                             softcap=softcap, impl=impl)
+    else:
+        out = dense_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
     return _out_proj(p, cfg, out)
+
+
+def cross_kv(p, cfg: ModelConfig, memory):
+    """Cross-attention k and v (B,S_src,KV,hd) from the encoder's memory
+    (B,S_src,D)."""
+    k = _proj(memory, p["k"]["w"])
+    v = _proj(memory, p["v"]["w"])
+    if cfg.attn_bias:
+        k = k + p["k"]["b"]
+        v = v + p["v"]["b"]
+    return k, v
 
 
 # ------------------------------------------------------------ KV cache -----

@@ -16,8 +16,10 @@ Layers are grouped into *stages* as in the reference:
 so parameter trees carry across unchanged.  The LM head is always a
 separate parameter ("lm_head"): the PHSFL frozen random classifier.
 
-The reference's activation checkpointing of the trunk (``remat``) comes
-with a later slice; ``lm_loss`` keeps its per-chunk recompute.
+Activation checkpointing (``remat``) has the reference's granularity:
+one checkpoint per repeat of a scan stage (a whole pattern period) and
+one per lead or tail layer (``remat_wrapper``); ``lm_loss`` keeps its
+own per-chunk recompute.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (LOCAL_ATTN, MLA_ATTN, MLSTM, RGLRU,
                                       SLSTM, ModelConfig)
@@ -97,6 +100,44 @@ def _rope_theta_for(cfg: ModelConfig, kind: str) -> float:
 
 def _dtype(cfg: ModelConfig, dtype):
     return dtype or getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------- remat ----
+# the batch-free matmuls: ``x @ w`` (the projections, the MLP) folds into
+# aten.mm, or aten.addmm with a bias
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy, the reference's
+    ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    batch-free matmuls and recompute everything else, ``bmm`` included.
+    The kernels are reached through ctypes, not aten, so the policy never
+    sees them: their Functions run again in the recompute, as under
+    "full"."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat_wrapper(remat: bool, remat_policy: str | None = None):
+    """Activation-checkpoint wrapper factory (the reference's).
+
+    remat_policy None or "full": keep only the block's inputs and
+    recompute the whole block in the backward; "dots": keep the
+    batch-free matmul outputs too (``_save_dots``); any other policy means
+    "full", as in the reference.  Non-reentrant ``checkpoint``: it takes
+    parameter slices (views of stacked leaves), leaves that need no grad
+    (frozen ones) and any output structure."""
+    if not remat:
+        return lambda f: f
+    kw = {"use_reentrant": False}
+    if remat_policy == "dots":
+        kw["context_fn"] = _dots_contexts
+    return lambda f: lambda *args: checkpoint(f, *args, **kw)
 
 
 # -------------------------------------------------------- layer params -----
@@ -257,23 +298,47 @@ def _stage_layers(cfg: ModelConfig, st: Stage, sp):
             yield (r, j), pr[f"b{j}"], kind
 
 
-def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto"):
+def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
+          remat: bool = False, remat_policy: str | None = None):
     """Full-sequence forward to final hidden states (B,S,D).
 
     batch: {"tokens": (B,S) integer tensor, and for the VLM optionally
     "patch_embeds" (B,P,D) and "positions3" (B,S,3)}.  Returns (hidden,
-    aux) with aux the MoE auxiliary loss summed over the MoE layers
-    (float32; 0 without them).
+    aux) with aux the MoE auxiliary loss summed over the MoE layers in
+    layer order (float32; 0 without them).  ``remat`` checkpoints each
+    scan-stage period and each unscanned layer (``remat_wrapper``).
     """
     x = embed_tokens(params, cfg, batch["tokens"], batch.get("patch_embeds"))
     positions3 = batch.get("positions3")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for si, st in enumerate(compute_stages(cfg)):
-        for _, p, kind in _stage_layers(cfg, st, params[f"stage{si}"]):
+    maybe_remat = remat_wrapper(remat, remat_policy)
+
+    def layers(x, ps, kinds):
+        """Layers of ``kinds`` on ``ps`` in order: (x, their aux terms)."""
+        auxs = []
+        for p, kind in zip(ps, kinds):
             x, a = apply_layer(p, cfg, kind, x, positions3=positions3,
                                impl=impl)
-            if a is not None:
-                aux = aux + a
+            auxs.append(a)
+        return x, auxs
+
+    for si, st in enumerate(compute_stages(cfg)):
+        sp = params[f"stage{si}"]
+        kinds = [_layer_kind(cfg, lid) for lid in st.layer_ids]
+        if st.which == "scan":
+            period = maybe_remat(lambda x, pr, kinds=kinds: layers(
+                x, [pr[f"b{j}"] for j in range(len(kinds))], kinds))
+            calls = [(period, tree_map(lambda a: a[r], sp))
+                     for r in range(st.repeats)]
+        else:
+            calls = [(maybe_remat(lambda x, p, kind=kind: layers(
+                x, [p], [kind])), sp[f"b{j}"])
+                for j, kind in enumerate(kinds)]
+        for fn, p in calls:
+            x, auxs = fn(x, p)
+            for a in auxs:
+                if a is not None:
+                    aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, aux
 

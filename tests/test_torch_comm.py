@@ -95,7 +95,7 @@ def test_cnn_tables_match_reference():
 
 LMS = ("xlstm-350m", "gemma3-12b", "recurrentgemma-2b", "olmoe-1b-7b",
        "deepseek-v2-236b", "qwen2-vl-7b", "command-r-plus-104b",
-       "mistral-large-123b", "gemma3-27b")
+       "mistral-large-123b", "gemma3-27b", "seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("arch", LMS)
@@ -114,6 +114,12 @@ def test_lm_tables_match_reference(arch):
     tc, jc = _codecs("int8")
     cfg, jcfg = get_arch(arch).reduced(), j_get_arch(arch).reduced()
     kw = dict(seq_len=64, dataset_size=100, batch_size=2, cuts=(1, 2))
+    if cfg.encdec is not None:
+        # the frontend split has one cut: any other depth is refused
+        for side, c, codec in ((comm, cfg, tc), (jcomm, jcfg, jc)):
+            with pytest.raises(ValueError, match="frontend-based split"):
+                side.comm_table_for_lm(c, codecs={"int8": codec}, **kw)
+        kw["cuts"] = (cfg.n_client_layers,)
     got = comm.comm_table_for_lm(cfg, codecs={"fp32": None, "int8": tc},
                                  **kw)
     want = jcomm.comm_table_for_lm(jcfg, codecs={"fp32": None, "int8": jc},

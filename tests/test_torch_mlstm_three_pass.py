@@ -110,8 +110,17 @@ def test_float64_witness_at_a_long_ragged_length():
                                                     mlstm_chunkwise)
     s = 2049
     x = _inputs(1, 2, s, 256, seed=s)
-    oracle = mlstm_recurrent_ref(*(torch.from_numpy(a).double() for a in x),
-                                 dtype=torch.float64).numpy()
+    # the oracle is 2049 steps of small float64 ops: one thread, as
+    # several a step only wait on each other when other tests share the
+    # cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        oracle = mlstm_recurrent_ref(
+            *(torch.from_numpy(a).double() for a in x),
+            dtype=torch.float64).numpy()
+    finally:
+        torch.set_num_threads(threads)
     sw = lambda a: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(np.swapaxes(a, 1, 2)))
     qkv = [sw(a).to(torch.bfloat16) for a in x[:3]]

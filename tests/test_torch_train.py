@@ -145,7 +145,12 @@ def test_train_lines_carry_the_reference_keys(tmp_path, capsys):
 
 
 def test_kill_and_resume_is_bit_identical(tmp_path, capsys):
-    flags = ["--device", "cpu", *FLAGS, "--ckpt-every", "1"]
+    # two rounds of two clients as FLAGS, at one local step over 16
+    # tokens: the same resume path at an eighth of the sLSTM loop's steps
+    # a round
+    flags = ["--device", "cpu", "--rounds", "2", "--clients", "2", "--seq",
+             "16", "--local-steps", "1", "--finetune-steps", "2",
+             "--ckpt-every", "1"]
     whole, w_lines = _port_main(flags + ["--ckpt-dir",
                                          str(tmp_path / "w")], capsys)
     cut, c_lines = _port_main(flags + ["--ckpt-dir", str(tmp_path / "k"),

@@ -150,20 +150,6 @@ def test_embed_scale_rounds_to_the_dtype_first():
     assert float(jx[0, 0, 0]) == 62.0
 
 
-@pytest.mark.parametrize("entry", ["get_arch", "build_model"])
-def test_other_block_kinds_raise_naming_their_slice(entry):
-    """Every decoder architecture is ported (``test_torch_zoo.py``); the
-    encoder-decoder, seamless-m4t-medium, still raises, naming it."""
-    with pytest.raises((KeyError, NotImplementedError),
-                       match="encoder-decoder") as err:
-        if entry == "get_arch":
-            get_arch("seamless-m4t-medium")
-        else:
-            build_model(j_get_arch("seamless-m4t-medium").reduced())
-    assert err.type is (KeyError if entry == "get_arch"
-                        else NotImplementedError)
-
-
 # ---------------------------------------------------------- xlstm-350m -----
 # reduced(num_layers=6): lead (layer 0, mLSTM), scan (layers 1-2, sLSTM
 # then mLSTM, two repeats: stacked parameters and stacked caches) and tail
