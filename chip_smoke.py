@@ -20,7 +20,9 @@ K2 in olmoe-1b-7b's attention, deepseek-v2-236b's MLA at head width
 192 and qwen2-vl-7b's M-RoPE attention), and the encoder-decoder,
 seamless-m4t-medium, served and trained whole (K2 in its encoder's and
 decoder's self-attention at head width 64), with activation
-checkpointing (``remat``) in the host round.  Phases, each printing one
+checkpointing (``remat``) in the host round, and the mesh rounds over
+``torch.distributed`` process groups (NCCL at world size 1; four and
+two ranks on the one card over gloo, K2 and K3 on their paths).  Phases, each printing one
 JSON line (any mismatch or fault exits non-zero; no phase's failure is
 caught):
 
@@ -241,11 +243,28 @@ caught):
     time, tokens/s, the round's peak and a local step's, K2 launches
     against the count reckoned for the policy, the params equal across
     the three, the head bank and a positive gain;
-30. the kernels line (each kernel's launches on its serving or CNN path,
+30. mesh_nccl: the mesh rounds at world size 1 over NCCL in this
+    process: ``make_phsfl_round`` on xlstm-350m.reduced() (K3) at C = 1
+    bit-equal to ``make_host_round`` at C = 1, and
+    ``make_shared_server_step`` (four clients on the rank) on reduced
+    mistral-large-123b and olmoe-1b-7b (K2) with both ``sync_clients``
+    within 1e-6 of the same step on the CPU;
+31. reference_mesh: ``make_phsfl_round`` on four ranks spawned on the
+    one card over gloo (pod 2 x data 2 x model 1), reduced
+    mistral-large-123b (K2), unmasked with global sync and under two
+    masks: each client bit-equal to the port's host round on the card and
+    within 1e-6 of the CPU's, K2 launches counted in each rank;
+32. train_mesh_seamless: seamless-m4t-medium whole through
+    ``launch/train.py``'s ``train()`` on two ranks spawned on the one card
+    over gloo, one client each, one round of one local step of 1 x 2048
+    tokens: the params bit-equal to the host round's (sha256 of every
+    leaf), each rank's round wall time, peak, K2 launches and the seconds
+    and bytes of its edge ``all_reduce``;
+33. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
-    phases, the telemetry phases, the zoo's and seamless's, with each
-    probe's wall time), then ``{"ok": true, "device": {...}}`` as the
-    last line.
+    phases, the telemetry phases, the zoo's and seamless's, on the mesh
+    phases by run and by rank, with each probe's wall time), then
+    ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are not beside this script.
@@ -412,6 +431,25 @@ REMAT_POLICIES = {"none": {}, "full": dict(remat=True),
 # tokens over 1024 source frames, one round through make_host_round,
 # under the reference's default TrainConfig ("full"), "dots" and none
 TRAIN_SEAMLESS = dict(clients=2, local_steps=1, micro=1, seq=2048, seed=0)
+# the mesh slice.  mesh_nccl: world size 1 over NCCL, the xlstm mesh round
+# at C = 1 and the shared-server step of four clients on the one rank,
+# that step against the CPU within MESH_TOL; reference_mesh: four ranks
+# on the one card over gloo, (pod 2, data 2, model 1), uneven weights,
+# unmasked and under two masks; train_mesh_seamless: the whole model on
+# two ranks through train(), one client each (lr and head steps: the
+# reference's TrainConfig)
+MESH_TOL = 1e-6
+MESH_XLSTM = dict(local_steps=2, micro=2, seq=64)
+MESH_SHARED = dict(clients=4, micro=2, seq=32)
+MESH_SHARED_ARCHS = ("mistral-large-123b", "olmoe-1b-7b")
+MESH_REFERENCE = dict(arch="mistral-large-123b", clients=4, local_steps=2,
+                      micro=2, seq=32)
+MESH_ALPHA_U = (0.25, 0.75, 0.5, 0.5)
+MESH_ALPHA_B = (0.3, 0.3, 0.7, 0.7)
+MESH_MASKS = {"two_lost": (1.0, 0.0, 1.0, 0.0),
+              "es_empty": (0.0, 0.0, 1.0, 1.0)}
+TRAIN_MESH_SEAMLESS = dict(rounds=1, clients=2, local_steps=1, micro=1,
+                           seq=2048, seed=0, lr=0.01, finetune_steps=10)
 
 
 def train_batches(kw) -> tuple:
@@ -4121,6 +4159,427 @@ def phase_reference_train_remat(torch, np, kernels):
     return counts["full"]
 
 
+
+# ------------------------------------------------------- the mesh slice ----
+def _flat_numpy(tree) -> dict:
+    from repro_torch.utils.tree import path_leaves
+    return {p: t.detach().float().cpu().numpy() for p, t in path_leaves(tree)}
+
+
+def _max_abs_diff(np, a: dict, b: dict) -> float:
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def _bit_equal(np, a: dict, b: dict) -> bool:
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))
+    return all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _shared_step_run(torch, arch, mesh, device):
+    """One shared-server step of MESH_SHARED's clients at ``arch``'s
+    reduced config on ``device``, from the CPU init of seed 0, then both
+    ``sync_clients``: (params, state, loss, pod mean, global mean) on the
+    host, and the step's kernel launches."""
+    from repro_torch.configs.base import HierarchyConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import (build_optimizer,
+                                        init_shared_server_params,
+                                        make_shared_server_step)
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    kw = MESH_SHARED
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    C = kw["clients"]
+    tcfg = TrainConfig(learning_rate=0.05, freeze_head=True, remat=False)
+    params = tree_map(lambda t: t.to(device), init_shared_server_params(
+        model, make_generator(0, "cpu"), C))
+    opt, _ = build_optimizer(model, tcfg, params=params)
+    state = opt.init(params)
+    batch = {n: v[:, 0] for n, v in _client_round_batch(
+        cfg, C, 1, kw["micro"], kw["seq"], seed=0, device=device).items()}
+    step = make_shared_server_step(
+        model, HierarchyConfig(num_edge_servers=1, clients_per_es=C), tcfg,
+        mesh, C)
+    before = fa.launches
+    p, s, m = step.fn(params, state, batch)
+    launches = fa.launches - before
+    return (_flat_numpy(p), _flat_numpy(s), float(m["loss"]),
+            _flat_numpy(step.sync_clients(p, False)),
+            _flat_numpy(step.sync_clients(p, True))), launches
+
+
+def phase_mesh_nccl(torch, np, kernels):
+    """The mesh rounds at world size 1 over NCCL, in this process:
+    ``make_phsfl_round`` on xlstm-350m.reduced() (float32: K3's float32
+    route) at C = 1, against ``make_host_round`` at C = 1 on the card,
+    bit for bit; ``make_shared_server_step`` (four clients on the one
+    rank) on reduced mistral-large-123b and reduced olmoe-1b-7b (the MoE;
+    K2 in both), then both ``sync_clients``, against the same step on the
+    CPU (a one-rank gloo group) within MESH_TOL.  Counts set to 0 just
+    before each run and read just after."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import (MLSTM, HierarchyConfig,
+                                          TrainConfig)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import (build_optimizer, make_host_round,
+                                        make_phsfl_round, stack_replicas)
+    from repro_torch.launch.distributed import free_port
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    kw = MESH_XLSTM
+    cfg = get_arch("xlstm-350m").reduced()
+    model = build_model(cfg)
+    hcfg = HierarchyConfig(num_edge_servers=1, clients_per_es=1,
+                           kappa0=kw["local_steps"], kappa1=1)
+    tcfg = TrainConfig(learning_rate=0.05, freeze_head=True, remat=False)
+    one = model.init(make_generator(0, "cuda"))
+    opt, _ = build_optimizer(model, tcfg, params=one)
+    params, state = stack_replicas(one, 1), stack_replicas(opt.init(one), 1)
+    batch = _client_round_batch(cfg, 1, kw["local_steps"], kw["micro"],
+                                kw["seq"], seed=0, device="cuda")
+    au = torch.ones(1, device="cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        round_ = make_phsfl_round(model, hcfg, tcfg, mesh, global_sync=False)
+        reset_counts(kernels)
+        (pm, sm, mm), wall = sync_time(
+            torch, lambda: round_.fn(params, state, batch, au, au))
+        round_counts = read_counts(kernels)
+        host = make_host_round(model, hcfg, tcfg, num_clients=1,
+                               global_sync=False)
+        ph, sh, mh = host.fn(params, state, batch, au, au)
+        round_equal = (_bit_equal(np, _flat_numpy(pm), _flat_numpy(ph))
+                       and _bit_equal(np, _flat_numpy(sm), _flat_numpy(sh))
+                       and float(mm["loss"]) == float(mh["loss"]))
+        card, shared_counts = {}, {}
+        for arch in MESH_SHARED_ARCHS:
+            reset_counts(kernels)
+            card[arch], _ = _shared_step_run(torch, arch, mesh, "cuda")
+            shared_counts[arch] = read_counts(kernels)
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        cpu = {a: _shared_step_run(torch, a, mesh, "cpu")[0]
+               for a in MESH_SHARED_ARCHS}
+    finally:
+        dist.destroy_process_group()
+    diffs = {}
+    for arch in MESH_SHARED_ARCHS:
+        (cp, cs, cl, cpod, call), (hp, hs, hl, hpod, hall) = (card[arch],
+                                                             cpu[arch])
+        diffs[arch] = {"params": _max_abs_diff(np, cp, hp),
+                       "state": _max_abs_diff(np, cs, hs),
+                       "loss_rel": abs(cl - hl) / abs(hl),
+                       "sync_pod": _max_abs_diff(np, cpod, hpod),
+                       "sync_all": _max_abs_diff(np, call, hall)}
+    n_mlstm = sum(k == MLSTM for k in cfg.layer_kinds())
+    expected = {"xlstm_round": kw["local_steps"] * n_mlstm,
+                **{a: MESH_SHARED["clients"] * attention_layers(
+                    get_arch(a).reduced()) for a in MESH_SHARED_ARCHS}}
+    emit({"phase": "mesh_nccl", "backend": backend, "world_size": 1,
+          "xlstm_round": {"config": cfg.name, "dtype": cfg.dtype,
+                          "clients": 1, **kw, "round_wall_s": wall,
+                          "loss": float(mm["loss"]),
+                          "bit_equal_to_host_round": round_equal,
+                          "launches": round_counts},
+          "shared_server": {"configs": [get_arch(a).reduced().name
+                                        for a in MESH_SHARED_ARCHS],
+                            **MESH_SHARED, "cuda_vs_cpu_max_abs_diff": diffs,
+                            "tol": MESH_TOL, "launches": shared_counts},
+          "launches_expected": expected})
+    assert backend == "nccl", backend
+    assert round_equal
+    assert round_counts["mlstm_chunk"] == expected["xlstm_round"], round_counts
+    for arch in MESH_SHARED_ARCHS:
+        assert all(v <= MESH_TOL for v in diffs[arch].values()), diffs
+        assert shared_counts[arch]["flash_attention"] == expected[arch], (
+            arch, shared_counts)
+    return {"xlstm_round": round_counts, **shared_counts}
+
+
+def _reference_mesh_rank(rank, world, dev, inputs):
+    """One client rank of reference_mesh on the shared card: the three
+    mesh rounds from the same inputs (its K2 launches counted), and on
+    rank 0 the port's host round of all four clients on the card."""
+    import torch
+    from repro_torch.core.phsfl import client_index, make_phsfl_round
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.tree import tree_map
+    cfg, hcfg, tcfg = _reference_mesh_configs()
+    model = build_model(cfg)
+    params, state, batch, au, ab = (
+        tree_map(lambda a: torch.from_numpy(a).to(dev), x) for x in inputs)
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device_type="cuda")
+    c = client_index(mesh)
+    mine = lambda t: t[c:c + 1]
+    args = (tree_map(mine, params), tree_map(mine, state),
+            tree_map(mine, batch), mine(au), mine(ab))
+    rounds = {"plain": make_phsfl_round(model, hcfg, tcfg, mesh,
+                                        global_sync=True)}
+    masked = make_phsfl_round(model, hcfg, tcfg, mesh, global_sync=True,
+                              participation=True)
+    out = {"client": c, "backend": torch.distributed.get_backend(),
+           "device": str(dev)}
+    fa.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s, m = rounds["plain"].fn(*args)
+    out["plain"] = (_flat_numpy(p), _flat_numpy(s), float(m["loss"]))
+    for name, mask in MESH_MASKS.items():
+        p, s, m = masked.fn(*args, mine(torch.tensor(mask, device=dev)))
+        out[name] = (_flat_numpy(p), _flat_numpy(s), float(m["loss"]))
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["flash_launches"] = fa.launches
+    if rank == 0:
+        out["host"] = _reference_mesh_host(torch, model, hcfg, tcfg, params,
+                                           state, batch, au, ab, dev)
+    return out
+
+
+def _reference_mesh_configs():
+    from repro_torch.configs.base import HierarchyConfig, TrainConfig
+    from repro_torch.configs.registry import get_arch
+    kw = MESH_REFERENCE
+    return (get_arch(kw["arch"]).reduced(),
+            HierarchyConfig(num_edge_servers=2, clients_per_es=2,
+                            kappa0=kw["local_steps"], kappa1=1),
+            TrainConfig(learning_rate=0.05, freeze_head=True, remat=False))
+
+
+def _reference_mesh_host(torch, model, hcfg, tcfg, params, state, batch,
+                         au, ab, dev):
+    """The port's host round of reference_mesh's three cases on ``dev``:
+    {case: (params, state, loss)} as (C, ...) numpy."""
+    from repro_torch.core.phsfl import make_host_round
+    C = MESH_REFERENCE["clients"]
+    plain = make_host_round(model, hcfg, tcfg, num_clients=C,
+                            global_sync=True)
+    masked = make_host_round(model, hcfg, tcfg, num_clients=C,
+                             global_sync=True, participation=True)
+    out = {}
+    p, s, m = plain.fn(params, state, batch, au, ab)
+    out["plain"] = (_flat_numpy(p), _flat_numpy(s), float(m["loss"]))
+    for name, mask in MESH_MASKS.items():
+        p, s, m = masked.fn(params, state, batch, au, ab,
+                            torch.tensor(mask, device=dev))
+        out[name] = (_flat_numpy(p), _flat_numpy(s), float(m["loss"]))
+    return out
+
+
+def phase_reference_mesh(torch, np, kernels):
+    """``make_phsfl_round`` on four ranks spawned on the one card over gloo
+    (pod 2 x data 2 x model 1: two ESs of two clients), reduced
+    mistral-large-123b (float32; K2 in its attention), 2 local steps of
+    2 x 32 tokens, uneven alpha_u and alpha_b: unmasked with global sync,
+    then masked with two clients lost (one an ES) and with ES 0 emptied.
+    Each rank's client against the port's host round of the four clients
+    on the card (bit for bit, as predicted) and on the CPU (within
+    MESH_TOL).  Each rank counts its own K2 launches."""
+    from repro_torch.core.phsfl import build_optimizer, stack_replicas
+    from repro_torch.launch.distributed import spawn
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_map
+    kw = MESH_REFERENCE
+    C = kw["clients"]
+    cfg, hcfg, tcfg = _reference_mesh_configs()
+    model = build_model(cfg)
+    one = model.init(make_generator(0, "cpu"))
+    opt, _ = build_optimizer(model, tcfg, params=one)
+    params, state = stack_replicas(one, C), stack_replicas(opt.init(one), C)
+    batch = _client_round_batch(cfg, C, kw["local_steps"], kw["micro"],
+                                kw["seq"], seed=0)
+    au, ab = torch.tensor(MESH_ALPHA_U), torch.tensor(MESH_ALPHA_B)
+    cpu = _reference_mesh_host(torch, model, hcfg, tcfg, params, state,
+                               batch, au, ab, "cpu")
+    inputs = tuple(tree_map(lambda t: t.numpy(), x)
+                   for x in (params, state, batch, au, ab))
+    torch.cuda.empty_cache()
+    ranks, wall = sync_time(torch, lambda: spawn(
+        _reference_mesh_rank, C, (inputs,), device="cuda", threads=2,
+        timeout=600))
+    card = ranks[0]["host"]
+    rows = {}
+    for case in ("plain", *MESH_MASKS):
+        worst_cpu, equal = 0.0, True
+        for r in ranks:
+            c = r["client"]
+            for got, want_card, want_cpu in zip(r[case][:2], card[case][:2],
+                                                cpu[case][:2]):
+                for k in want_card:
+                    equal &= bool(np.array_equal(got[k][0], want_card[k][c]))
+                    worst_cpu = max(worst_cpu, float(np.abs(
+                        got[k][0] - want_cpu[k][c]).max()))
+        rows[case] = {"bit_equal_to_card_host_round": equal,
+                      "max_abs_diff_vs_cpu": worst_cpu,
+                      "loss": ranks[0][case][2],
+                      "loss_card_host": card[case][2],
+                      "loss_cpu_host": cpu[case][2]}
+    per_rank = [r["flash_launches"] for r in ranks]
+    expected = (1 + len(MESH_MASKS)) * kw["local_steps"] * attention_layers(
+        cfg)
+    emit({"phase": "reference_mesh", "config": cfg.name, "dtype": cfg.dtype,
+          "mesh": {"pod": 2, "data": 2, "model": 1},
+          "backend": [r["backend"] for r in ranks],
+          "devices": [r["device"] for r in ranks], **kw,
+          "alpha_u": MESH_ALPHA_U, "alpha_b": MESH_ALPHA_B,
+          "masks": MESH_MASKS, "cases": rows, "tol": MESH_TOL,
+          "spawn_wall_s": wall, "rank_round_wall_s": [r["wall_s"]
+                                                      for r in ranks],
+          "flash_launches_per_rank": per_rank,
+          "flash_launches_expected_per_rank": expected})
+    assert [r["client"] for r in ranks] == list(range(C))
+    assert all(b == "gloo" for b in (r["backend"] for r in ranks))
+    for case, row in rows.items():
+        assert row["max_abs_diff_vs_cpu"] <= MESH_TOL, (case, row)
+        assert abs(row["loss"] - row["loss_cpu_host"]) <= MESH_TOL * abs(
+            row["loss_cpu_host"]), (case, row)
+    assert all(n == expected for n in per_rank), (per_rank, expected)
+    return {"flash_attention": per_rank}
+
+
+def _digests(tree, clients) -> dict:
+    """sha256 of each leaf's bytes, for each of ``clients`` rows of the
+    stacked (n, ...) tree."""
+    import hashlib
+
+    import torch
+    from repro_torch.utils.tree import path_leaves
+    out = {}
+    for path, x in path_leaves(tree):
+        for i, c in enumerate(clients):
+            raw = x[i].contiguous().view(-1).view(torch.uint8).cpu().numpy()
+            out[(path, c)] = hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def _seamless_rank(rank, world, dev, kw):
+    """One client rank of train_mesh_seamless: ``train()`` under the gloo
+    group, its K2 launches, and the seconds and bytes of its
+    ``all_reduce`` calls (the edge step's, and the loss's mean)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.launch.train import train
+    from repro_torch.telemetry import MetricLogger
+    reduce = dist.all_reduce
+    traffic = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+    def timed(t, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        traffic["seconds"] += time.perf_counter() - t0
+        traffic["calls"] += 1
+        traffic["bytes"] += t.numel() * t.element_size()
+        return out
+
+    dist.all_reduce = timed
+    fa.launches = 0
+    try:
+        res = train(get_arch("seamless-m4t-medium"), device=dev,
+                    log=MetricLogger(f"train_mesh_seamless.{rank}",
+                                     sys.stderr), **kw)
+    finally:
+        dist.all_reduce = reduce
+    return {"client": rank, "backend": dist.get_backend(),
+            "device": str(dev), "round_wall_s": res.round_seconds,
+            "losses": res.losses, "peak_mem_GB": res.peak_mem_GB,
+            "flash_launches": fa.launches, "all_reduce": traffic,
+            "gain": res.personalization_gain,
+            "digests": _digests(res.params, [rank])}
+
+
+def phase_train_mesh_seamless(torch, np, kernels):
+    """seamless-m4t-medium whole (bf16, 0.98 B) trained through
+    ``launch/train.py``'s ``train()`` on two ranks spawned on the one card
+    over gloo, one client each: one round of one local step of 1 x 2048
+    tokens over 1024 frames (lr 0.01, 10 head steps: the reference's
+    TrainConfig).  First the same ``train()`` without a group (the host
+    round of the two clients, as train_seamless runs it) in this process,
+    whose cached memory is then freed.  Each rank's parameters against the
+    host round's client, bit for bit (sha256 of every leaf), the head
+    against the init's; each rank's round wall time, peak, K2 launches
+    and the seconds and bytes of its edge ``all_reduce``."""
+    import gc
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.distributed import spawn
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.telemetry import MetricLogger
+    from repro_torch.utils.prng import make_generator
+    kw = TRAIN_MESH_SEAMLESS
+    cfg = get_arch("seamless-m4t-medium")
+    C = kw["clients"]
+    head0 = build_model(cfg).init(make_generator(kw["seed"], "cuda"))[
+        "lm_head"]["w"]
+    head_digest = _digests({"lm_head": {"w": head0[None]}}, [0])[
+        ("lm_head/w", 0)]
+    del head0
+    host, host_wall = sync_time(torch, lambda: train(
+        cfg, device="cuda", log=MetricLogger("train_mesh_seamless.host",
+                                             sys.stderr), **kw))
+    want = _digests(host.params, range(C))
+    host_row = {"round_wall_s": host.round_seconds, "losses": host.losses,
+                "peak_mem_GB": host.peak_mem_GB,
+                "gain": host.personalization_gain}
+    del host
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, wall = sync_time(torch, lambda: spawn(
+        _seamless_rank, C, (kw,), device="cuda", timeout=900))
+    equal = all(r["digests"][(p, r["client"])] == want[(p, r["client"])]
+                for r in ranks for (p, c) in want if c == r["client"])
+    replicas = all(r["digests"][(p, r["client"])] == want[(p, 0)]
+                   for r in ranks for (p, c) in want if c == 0)
+    frozen = all(r["digests"][("lm_head/w", r["client"])] == head_digest
+                 for r in ranks)
+    per_forward = attention_layers(cfg)
+    expected = (kw["rounds"] * kw["local_steps"] + 3) * per_forward
+    emit({"phase": "train_mesh_seamless", "config": {
+              "arch": cfg.name, "dtype": cfg.dtype, **kw},
+          "backend": [r["backend"] for r in ranks],
+          "devices": [r["device"] for r in ranks],
+          "bit_equal_to_host_round": equal, "replicas_equal": replicas,
+          "head_frozen": frozen, "spawn_wall_s": wall,
+          "host": host_row, "host_train_wall_s": host_wall,
+          "ranks": [{k: r[k] for k in ("client", "round_wall_s", "losses",
+                                        "peak_mem_GB", "flash_launches",
+                                        "all_reduce", "gain")}
+                    for r in ranks],
+          "flash_launches_expected_per_rank": expected,
+          "flash_launches_expected_from": "(rounds x local steps + the "
+          "bank's trunk pass + two evaluations) x (encoder + decoder "
+          "layers)"})
+    assert equal and replicas and frozen, (equal, replicas, frozen)
+    for r in ranks:
+        assert r["flash_launches"] == expected, (r["flash_launches"],
+                                                 expected)
+        assert r["losses"] == host_row["losses"], (r["losses"], host_row)
+        assert r["gain"] == host_row["gain"], (r["gain"], host_row)
+    return {"flash_attention": [r["flash_launches"] for r in ranks]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4220,6 +4679,20 @@ def main() -> int:
     seamless_serving = phase_serve_seamless(torch, kernels)
     for policy, counts in phase_train_seamless(torch, kernels).items():
         train_counts[f"train_seamless_{policy}"] = counts
+    mesh_counts = {
+        "mesh_nccl": phase_mesh_nccl(torch, np, kernels),
+        "reference_mesh": phase_reference_mesh(torch, np, kernels),
+        "train_mesh_seamless": phase_train_mesh_seamless(torch, np,
+                                                         kernels)}
+
+    def mesh_launches(name):
+        """Each mesh phase's launches of one kernel: mesh_nccl's by run,
+        the spawned phases' by rank (they count K2 only)."""
+        nccl = {run: counts[name]
+                for run, counts in mesh_counts["mesh_nccl"].items()}
+        return {"mesh_nccl": nccl, **{
+            phase: counts[name] for phase, counts in mesh_counts.items()
+            if name in counts and phase != "mesh_nccl"}}
 
     def train_launches(name):
         """Each training phase's launches of one kernel, as it read them."""
@@ -4258,6 +4731,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:98",
         "launches": flash_launches,
         "train_launches": train_launches("flash_attention"),
+        "mesh_launches": mesh_launches("flash_attention"),
         "wireless_launches": wireless_launches("flash_attention"),
         "telemetry": telemetry("flash_attention"),
         "within_tolerance": True,
@@ -4317,6 +4791,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:77",
         "launches": mlstm_launches,
         "train_launches": train_launches("mlstm_chunk"),
+        "mesh_launches": mesh_launches("mlstm_chunk"),
         "wireless_launches": wireless_launches("mlstm_chunk"),
         "telemetry": telemetry("mlstm_chunk"),
         "within_tolerance": True,

@@ -351,3 +351,19 @@ class WirelessConfig:
     #                                  the all-defaults instance is the exact
     #                                  fault-free scheduler, bit-for-bit
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The production mesh: 16 clients x 16-way tensor parallelism, or two
+    pods (edge servers) of that."""
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data",
+                                                                 "model")

@@ -1,16 +1,22 @@
 """Hierarchical aggregation (paper Sec. II-B, Eqs. 4–7 and 14–16).
 
-The host half of ``repro.core.hierarchy``: bookkeeping and explicit
-weighted sums over lists of client trees (dicts of tensors), plain and
-participation-masked.  The mesh half waits for the mesh slice.
+``repro.core.hierarchy``'s two renderings of the same math:
+  - host side (fedsim): explicit weighted sums over lists of client trees
+    (dicts of tensors), plain and participation-masked;
+  - mesh side (phsfl): weighted sums over the "data" (an ES's clients)
+    and "pod" (the CS's edge servers) dims of a ``DeviceMesh``, each rank
+    holding one client's tree: the reference's ``lax.psum`` over a manual
+    axis is ``dist.all_reduce`` (SUM) over that dim's process group.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import HierarchyConfig
-from repro_torch.utils.tree import tree_weighted_sum
+from repro_torch.utils.tree import tree_map, tree_weighted_sum
 
 
 # --------------------------------------------------------- bookkeeping -----
@@ -84,3 +90,64 @@ def masked_global_aggregate(edge_trees: list, alpha_b, mask,
     """Eq. (16) over the ESs that had at least one participant this global
     round; alpha_b renormalizes over them."""
     return _masked_weighted_sum(edge_trees, alpha_b, mask, fallback)
+
+
+# ------------------------------------------------------------ mesh side ----
+def psum_weighted(tree, weight, group, agg_dtype=torch.float32):
+    """sum_i weight_i * tree_i over the ranks of ``group`` (a mesh dim's
+    process group), every rank getting the sum.
+
+    ``weight`` is this rank's scalar aggregation weight (alpha_u or
+    alpha_b, already normalized over the group).  The reduction runs in
+    ``agg_dtype`` (float32 by default, the standard for parameter
+    averaging), and the result is cast back to each leaf's dtype."""
+    w = weight.to(agg_dtype)
+
+    def agg(t):
+        acc = t.to(agg_dtype) * w
+        dist.all_reduce(acc, group=group)
+        return acc.to(t.dtype)
+
+    return tree_map(agg, tree)
+
+
+def masked_psum_weighted(tree, weight, mask, fallback, group,
+                         agg_dtype=torch.float32):
+    """Participation-masked :func:`psum_weighted`.
+
+    ``mask`` is this rank's 0/1 participation scalar.  Weights
+    renormalize over the participating ranks; with none, every rank keeps
+    its ``fallback`` tree (the model from before this round's local
+    steps).  When ALL ranks participate the divisor is exactly 1.0:
+    multiplying by a 1.0 mask and dividing by 1.0 are exact, so the result
+    is bit-identical to the unmasked :func:`psum_weighted`."""
+    m = mask.to(agg_dtype)
+    w = weight.to(agg_dtype) * m
+    # psum of (mask, 1, weight) in one collective: n_part, n_all, total
+    stats = torch.stack([m, torch.ones_like(m), w])
+    dist.all_reduce(stats, group=group)
+    n_part, n_all, total = stats
+    one = torch.ones((), dtype=agg_dtype, device=stats.device)
+    denom = torch.where(n_part >= n_all, one,
+                        torch.where(total > 0, total, one))
+
+    def agg(t, fb):
+        acc = t.to(agg_dtype) * w
+        dist.all_reduce(acc, group=group)
+        acc = acc / denom
+        return torch.where(n_part > 0, acc.to(t.dtype), fb)
+
+    return tree_map(agg, tree, fallback)
+
+
+def edge_aggregate_mesh(tree, alpha_u_shard, mesh, agg_dtype=torch.float32):
+    """Weighted aggregation over the "data" dim (clients within an ES)."""
+    return psum_weighted(tree, alpha_u_shard, mesh.get_group("data"),
+                         agg_dtype)
+
+
+def global_aggregate_mesh(tree, alpha_b_shard, mesh,
+                          agg_dtype=torch.float32):
+    """Weighted aggregation over the "pod" dim (edge servers at the CS)."""
+    return psum_weighted(tree, alpha_b_shard, mesh.get_group("pod"),
+                         agg_dtype)

@@ -1,12 +1,27 @@
-"""PHSFL training rounds on one device (``repro.core.phsfl``'s host half).
+"""PHSFL training rounds (``repro.core.phsfl``).
 
-Every client owns a full model replica: parameters and optimizer states
-carry a leading client dimension C.  One call of a round's ``fn`` is one
-edge round:
+Three strategies:
 
-    kappa0 local SGD steps per client (no cross-client traffic)
-    -> weighted mean over each ES's clients   (edge aggregation, Eqs. 14-15)
-    -> [global_sync] weighted mean over ESs   (global aggregation, Eq. 16)
+1. ``make_host_round``: every client owns a full model replica;
+   parameters and optimizer states carry a leading client dimension C on
+   one device.  One call of a round's ``fn`` is one edge round:
+
+       kappa0 local SGD steps per client (no cross-client traffic)
+       -> weighted mean over each ES's clients  (edge aggregation, 14-15)
+       -> [global_sync] weighted mean over ESs  (global aggregation, 16)
+
+2. ``make_phsfl_round``: the same round over a ``DeviceMesh`` of
+   ("pod",) "data", "model" dims, one client per rank of the pod x data
+   dims.  Each rank holds its client's (1, ...) slice of the stacked
+   tensors and runs the same ``local_steps``; edge aggregation is a
+   weighted ``all_reduce`` over the "data" group, global aggregation one
+   over the "pod" group (``core.hierarchy``'s mesh half).
+
+3. ``make_shared_server_step`` (beyond the paper, SFL-V2-like): one
+   shared copy of the body and head on every rank, the small client
+   block per client; the shared leaves' gradients are summed over every
+   client rank each step, and the client blocks aggregate at the kappa0
+   boundary (``sync_clients``).
 
 The frozen head (Eq. 12) is an optimizer mask, so the head leaves never
 move and the aggregation leaves them bit-identical across clients.
@@ -14,29 +29,48 @@ move and the aggregation leaves them bit-identical across clients.
 The reference maps its clients with ``jax.vmap``; here a loop over the
 stacked (C, ...) tensors runs them one after another.  ``torch.func.vmap``
 cannot map an autograd Function that launches a kernel through ctypes,
-and only one client's step is alive at a time.  A round holds three
+and only one client's step is alive at a time.  A host round holds three
 stacked (C, ...) copies of the parameters at its peak (the round's
 input, the clients' new parameters, the edge step's output), the
 optimizer states, one client's step (its gradients and activations) and
-the edge step's float32 copies of one leaf.  The mesh rounds
-(``make_phsfl_round``, ``make_shared_server_step``) come with the mesh
-slice (ROADMAP §1).
+the edge step's float32 copies of one leaf.
+
+The reference lets GSPMD shard each client's replica over a "model" axis
+(tensor parallelism); the port keeps that axis at 1 and raises above it
+(ROADMAP §1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import HierarchyConfig, TrainConfig
-from repro_torch.core.split import (GLOBAL_TRAIN, HSFL_TRAIN, split_spec_for,
-                                    trainable_mask)
+from repro_torch.core.hierarchy import (edge_aggregate_mesh,
+                                        global_aggregate_mesh,
+                                        masked_psum_weighted)
+from repro_torch.core.split import (GLOBAL_TRAIN, HSFL_TRAIN, part_masks,
+                                    split_spec_for, trainable_mask)
+from repro_torch.models.init_utils import shape_generator
 from repro_torch.models.registry import Model
 from repro_torch.optim import (apply_updates, make_optimizer, masked,
                                zeros_view)
+from repro_torch.sharding.rules import (add_client_axis, as_abstract,
+                                        data_axes, params_specs)
 from repro_torch.utils.tree import tree_leaves, tree_map
+
+
+def abstract_params(model: Model, *, stacked_clients: int | None = None):
+    """``model.init``'s tree on the meta device: every shape and dtype, no
+    storage; stacked (C, ...) with ``stacked_clients``."""
+    shapes = model.init(shape_generator())
+    if stacked_clients is not None:
+        shapes = tree_map(lambda s: s.new_empty((stacked_clients,
+                                                 *s.shape)), shapes)
+    return shapes
 
 
 def local_steps(model: Model, opt, mask, tcfg: TrainConfig):
@@ -91,6 +125,8 @@ class PHSFLRound:
     fn: Callable            # (params, opt_state, batch, alpha_u, alpha_b
     #                          [, mask]) -> (params, opt_state, metrics)
     num_clients: int
+    params_spec: Any = None  # partition-spec tree of the stacked params
+    #                          (mesh rounds)
 
 
 def _lead(t: torch.Tensor, lead: tuple, ndim: int) -> torch.Tensor:
@@ -213,3 +249,206 @@ def stack_replicas(tree, num_clients: int):
     """(C, ...) copies of every leaf of ``tree``."""
     return tree_map(lambda x: x.unsqueeze(0).expand(num_clients, *x.shape)
                     .contiguous(), tree)
+
+
+# ------------------------------------------------- the mesh (one client a
+# rank of the pod x data dims) ---------------------------------------------
+def client_index(mesh) -> int:
+    """This rank's client: its coordinate along the pod x data dims, pod
+    major (client c sits in ES ``c // clients_per_pod``, as the host
+    round's (B, Ub) grouping has it)."""
+    names = as_abstract(mesh).axis_names
+    coord = dict(zip(names, mesh.get_coordinate()))
+    shape = as_abstract(mesh).shape
+    c = 0
+    for a in data_axes(mesh):
+        c = c * shape[a] + coord[a]
+    return c
+
+
+def _client_ranks(mesh) -> int:
+    """Ranks along the pod x data dims: the client slots."""
+    n = 1
+    for a in data_axes(mesh):
+        n *= as_abstract(mesh).shape[a]
+    return n
+
+
+def _client_groups(mesh) -> list:
+    return [mesh.get_group(a) for a in data_axes(mesh)]
+
+
+def _no_tensor_parallel(mesh) -> None:
+    if as_abstract(mesh).shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a 'model' mesh dim larger than 1 (tensor parallelism inside a "
+            "client) is not ported yet; see ROADMAP.md §1, the launch "
+            "tools")
+
+
+def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
+                     mesh, *, global_sync: bool,
+                     participation: bool = False, cut=None) -> PHSFLRound:
+    """One edge round over ``mesh`` (a ``DeviceMesh`` with a "data" dim,
+    optionally "pod", and "model" of size 1), one client per rank.
+
+    The fn takes the reference's arguments, each this rank's (1, ...)
+    slice of the stacked tensors: params, opt_state, batch, alpha_u,
+    alpha_b and, with ``participation=True``, the 0/1 mask.  The rank runs
+    its client's local steps (the host round's ``local_steps``), then the
+    weighted edge ``all_reduce`` over "data" and, when ``global_sync``
+    holds and the mesh has "pod", the global one over "pod".  Masked, the
+    weights renormalize over the participating clients, an ES with none
+    keeps its pre-round models, and an ES joins the global step iff it had
+    a participant; an all-ones mask is bit-identical to the unmasked
+    round.  The loss is the mean over all clients.  ``cut`` declares the
+    split boundary (a Remark-2 no-op on numerics)."""
+    _no_tensor_parallel(mesh)
+    num_clients = _client_ranks(mesh)
+    groups = _client_groups(mesh)
+    with_pod = "pod" in as_abstract(mesh).axis_names
+    agg = getattr(torch, tcfg.agg_dtype)
+    built = []              # the local steps, from the first call's paths
+
+    def per_client(params, opt_state, batch, au, ab, mask):
+        p_prev = tree_map(lambda x: x[0], params)
+        if not built:
+            built.append(local_steps(model, *build_optimizer(
+                model, tcfg, cut, params=p_prev), tcfg))
+        p, s, losses = built[0](p_prev, tree_map(lambda x: x[0], opt_state),
+                                {k: v[0] for k, v in batch.items()})
+        if mask is None:
+            p = edge_aggregate_mesh(p, au[0], mesh, agg)
+            if global_sync and with_pod:
+                p = global_aggregate_mesh(p, ab[0], mesh, agg)
+        else:
+            m = mask[0].to(agg)
+            p = masked_psum_weighted(p, au[0], m, p_prev,
+                                     mesh.get_group("data"), agg)
+            if global_sync and with_pod:
+                # an ES joins the global round iff it had a participant
+                n = m.clone()
+                dist.all_reduce(n, group=mesh.get_group("data"))
+                es_m = (n > 0).to(agg)
+                p = masked_psum_weighted(p, ab[0], es_m, p,
+                                         mesh.get_group("pod"), agg)
+        loss = losses.mean()
+        for g in groups:                        # pmean over each client dim
+            dist.all_reduce(loss, group=g)
+            loss = loss / dist.get_world_size(g)
+        return (tree_map(lambda x: x.unsqueeze(0), p),
+                tree_map(lambda x: x.unsqueeze(0), s), {"loss": loss})
+
+    if participation:
+        round_fn = per_client
+    else:
+        def round_fn(params, opt_state, batch, au, ab):
+            return per_client(params, opt_state, batch, au, ab, None)
+    spec = add_client_axis(params_specs(abstract_params(model), model.axes(),
+                                        mesh, mode="tp"), mesh)
+    return PHSFLRound(fn=round_fn, num_clients=num_clients,
+                      params_spec=spec)
+
+
+# ---------------------------------------------- shared-server (SFL-V2) -----
+@dataclass
+class SharedServerStep:
+    fn: Callable            # (params, opt_state, batch) -> (params, opt,
+    #                          metrics)
+    sync_clients: Callable  # (params, do_global: bool) -> params
+    client_mask: Any        # tree of bools: True on the client block
+    clients: range          # the clients this rank holds, in order
+
+
+def local_clients(mesh, num_clients: int) -> range:
+    """The contiguous block of ``num_clients`` clients on this rank: an
+    equal share per rank of the pod x data dims, in client order."""
+    ranks = _client_ranks(mesh)
+    if num_clients % ranks:
+        raise ValueError(f"{num_clients} clients do not split over "
+                         f"{ranks} ranks")
+    per = num_clients // ranks
+    first = client_index(mesh) * per
+    return range(first, first + per)
+
+
+def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
+                            tcfg: TrainConfig, mesh,
+                            num_clients: int) -> SharedServerStep:
+    """Beyond-paper mode: a shared body and head, a client block per
+    client.
+
+    params: the client-block leaves carry a leading dim of this rank's
+    clients (``local_clients``; all ``num_clients`` at world size 1), the
+    body and head leaves are one shared copy per rank.  ``fn`` runs one
+    SGD step on the mean over ALL clients of each client's loss under its
+    merged tree (its client block, the shared rest): a loop over this
+    rank's clients, whose shared leaves' gradients are then summed over
+    every client rank; the client leaves' gradients stay on their rank;
+    then the masked update.  ``batch`` leaves are (clients on this rank,
+    ...).  ``sync_clients(params, do_global)`` replaces each client
+    block by the unweighted mean over its pod's clients, or over all
+    clients."""
+    _no_tensor_parallel(mesh)
+    spec = split_spec_for(model.cfg)
+    client_mask = part_masks(abstract_params(model), spec)["client"]
+    mine = local_clients(mesh, num_clients)
+    groups = _client_groups(mesh)
+    shape = as_abstract(mesh).shape
+    pods = shape.get("pod", 1)
+    per_pod = num_clients // pods
+    built = []              # (optimizer, mask), from the first call's paths
+
+    def step(params, opt_state, batch):
+        if not built:
+            built.append(build_optimizer(model, tcfg, params=params))
+        opt, mask = built[0]
+        leaves = tree_map(lambda x, m: x.detach().requires_grad_(m),
+                          params, mask)
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(params)[0].device)
+        for i in range(len(mine)):
+            merged = tree_map(lambda c, x: x[i] if c else x, client_mask,
+                              leaves)
+            loss = model.loss(merged, {k: v[i] for k, v in batch.items()},
+                              remat=tcfg.remat) / num_clients
+            loss.backward()
+            total = total + loss.detach()
+        grads = tree_map(lambda t: zeros_view(t) if t.grad is None
+                         else t.grad, leaves)
+        del leaves
+        for c, g, m in zip(tree_leaves(client_mask), tree_leaves(grads),
+                           tree_leaves(mask)):
+            if m and not c:                     # a shared, trained leaf
+                for grp in groups:
+                    dist.all_reduce(g, group=grp)
+        for grp in groups:
+            dist.all_reduce(total, group=grp)
+        upd, opt_state = opt.update(grads, opt_state, params)
+        return apply_updates(params, upd, mask), opt_state, {"loss": total}
+
+    def sync_clients(params, do_global: bool):
+        """The kappa0-boundary aggregation of the client blocks."""
+        def agg(c, x):
+            if not c:
+                return x
+            acc = x.sum(dim=0, keepdim=True)
+            dist.all_reduce(acc, group=mesh.get_group("data"))
+            if do_global and "pod" in shape:
+                dist.all_reduce(acc, group=mesh.get_group("pod"))
+            mean = acc / (num_clients if do_global else per_pod)
+            return mean.expand(x.shape).contiguous()
+
+        return tree_map(agg, client_mask, params)
+
+    return SharedServerStep(fn=step, sync_clients=sync_clients,
+                            client_mask=client_mask, clients=mine)
+
+
+def init_shared_server_params(model: Model, gen: torch.Generator,
+                              num_clients: int):
+    """One init from ``gen``, the client-block leaves stacked (C, ...)."""
+    p = model.init(gen)
+    masks = part_masks(p, split_spec_for(model.cfg))
+    return tree_map(lambda m, x: x.unsqueeze(0).expand(
+        num_clients, *x.shape).contiguous() if m else x, masks["client"], p)

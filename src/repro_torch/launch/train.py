@@ -24,13 +24,26 @@ scheduler's Perfetto trace (``trace.json``) and metrics
 (``metrics.jsonl``), the kernel probes and the log's ``log.train.*``
 gauges, a run manifest (``manifest.json``) and a summary table
 (``summary.txt``); every number of the run stays as it is without it.
-The mesh round waits for the mesh slice: every run takes the reference's
-one-device path, ``make_host_round``.
+
+Under a process group of ``--clients`` ranks (``torchrun --nproc_per_node
+C -m repro_torch.launch.train --clients C ...``), ``train`` builds a
+(C, 1) ("data", "model") mesh and takes ``make_phsfl_round``, as the
+reference does when it has C devices: each rank draws the same init from
+``--seed``, keeps its client's slice and batches, and rank 0 logs and
+prints the reference's JSON.  ``main`` joins the group that ``torchrun``
+describes and prints the backend first (``launch.distributed``'s rule:
+nccl with a card a rank, gloo when the ranks share a card or run on the
+CPU).  Checkpoints keep the one-device layout: rank 0 gathers the (C,
+...) state and writes it, and on ``--resume`` every rank reads it and
+keeps its slice, so a mesh run and a one-device run resume each other.
+A group whose size is not C raises.  Without a group every run takes the
+reference's one-device path, ``make_host_round``.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import time
@@ -38,6 +51,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.configs.base import (FaultConfig, HierarchyConfig,
@@ -47,7 +61,8 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core.hierarchy import es_assignment
 from repro_torch.core.personalize import (personalize_head_bank,
                                           personalized_eval)
-from repro_torch.core.phsfl import (build_optimizer, make_host_round,
+from repro_torch.core.phsfl import (build_optimizer, client_index,
+                                    make_host_round, make_phsfl_round,
                                     stack_replicas)
 from repro_torch.data.synthetic import synthetic_token_batch
 from repro_torch.device import resolve_device
@@ -58,7 +73,7 @@ from repro_torch.utils.tree import tree_map
 
 
 def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
-                        device="cpu"):
+                        device="cpu", clients=None):
     """Stacked per-client batches (C, k, micro, seq); each client gets a
     DIFFERENT token distribution (client id shifts the vocab) => non-IID
     federated data.  The reference's numpy streams, element for
@@ -66,27 +81,30 @@ def _client_round_batch(cfg: ModelConfig, C, k, micro, seq, seed,
     builds them: the encoder-decoder's source frames of 0.02 (C, k, micro,
     max_source_len, D) float32; the VLM's patch embeddings of 0.02 (C, k,
     micro, P, D) float32 and M-RoPE positions (C, k, micro, seq, 3), the
-    token index in all three streams."""
+    token index in all three streams.  ``clients`` (a range of client ids,
+    default all C) builds only those clients' rows."""
     toks, labs = [], []
-    for c in range(C):
+    clients = range(C) if clients is None else clients
+    for c in clients:
         nb = synthetic_token_batch(seed * 1000 + c, k * micro, seq,
                                    max(cfg.vocab_size // 2, 2))
         shift = (c * cfg.vocab_size) // (2 * max(C, 1))
         toks.append((nb["tokens"] + shift) % cfg.vocab_size)
         labs.append((nb["labels"] + shift) % cfg.vocab_size)
-    batch = {name: torch.from_numpy(np.stack(a)).reshape(C, k, micro, seq)
+    n = len(clients)
+    batch = {name: torch.from_numpy(np.stack(a)).reshape(n, k, micro, seq)
              .to(device) for name, a in (("tokens", toks), ("labels", labs))}
     if cfg.encdec is not None:
         batch["source_embeds"] = torch.full(
-            (C, k, micro, cfg.encdec.max_source_len, cfg.d_model), 0.02,
+            (n, k, micro, cfg.encdec.max_source_len, cfg.d_model), 0.02,
             dtype=torch.float32, device=device)
     if cfg.vlm is not None:
         batch["patch_embeds"] = torch.full(
-            (C, k, micro, cfg.vlm.num_patch_tokens, cfg.d_model), 0.02,
+            (n, k, micro, cfg.vlm.num_patch_tokens, cfg.d_model), 0.02,
             dtype=torch.float32, device=device)
         batch["positions3"] = torch.arange(
             seq, dtype=torch.int32, device=device)[:, None].expand(
-            C, k, micro, seq, 3).contiguous()
+            n, k, micro, seq, 3).contiguous()
     return batch
 
 
@@ -103,7 +121,8 @@ class TrainResult:
     tokens_per_round: int    # C x kappa0 x micro x seq training tokens
     peak_mem_GB: float | None  # max_memory_allocated on the card
     params: dict             # stacked (C, ...) parameters after training
-    opt_state: dict          # stacked (C, ...) optimizer states
+    #                          (on a mesh, this rank's client's (1, ...))
+    opt_state: dict          # stacked (C, ...) optimizer states (ditto)
     start_round: int         # 0, or the round a resume started from
     aborted_after: int | None = None   # set when abort_after cut the run
     head_bank: torch.Tensor | None = None        # (C, D, V) Eq. 18 heads
@@ -153,9 +172,16 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     step, its round time advances the simulated clock, and its state
     (budgets, stale bank, every RNG stream, the population's) joins the
     state checkpoint.
+
+    Under a process group (``torch.distributed`` initialised) the run is
+    the mesh round, one client a rank (see the module's docstring): the
+    group's size must be ``clients``, and ``device`` is this rank's.
     """
     dev = resolve_device(device)
-    log = log or MetricLogger("train")
+    mesh = _client_mesh(clients, dev) if dist.is_initialized() else None
+    lead = mesh is None or dist.get_rank() == 0
+    log = log or MetricLogger("train", stream=None if lead else
+                              io.StringIO())
     model = build_model(cfg)
     C = clients
     hcfg = HierarchyConfig(num_edge_servers=1, clients_per_es=C,
@@ -166,27 +192,33 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
                        finetune_steps=finetune_steps, finetune_lr=lr)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    round_ = make_host_round(model, hcfg, tcfg, num_clients=C,
-                             global_sync=False,
-                             participation=scheduler is not None,
-                             cut=cfg.n_client_layers)
+    kw = dict(global_sync=False, participation=scheduler is not None,
+              cut=cfg.n_client_layers)
+    if mesh is None:
+        round_ = make_host_round(model, hcfg, tcfg, num_clients=C, **kw)
+        mine = range(C)
+    else:
+        round_ = make_phsfl_round(model, hcfg, tcfg, mesh, **kw)
+        c = client_index(mesh)
+        mine = range(c, c + 1)
+    n = len(mine)                        # the clients this process holds
     population = getattr(scheduler, "population", None)
 
     one = (model.init(make_generator(seed, dev)) if params is None
            else tree_map(lambda t: t.to(dev), params))
     opt, _ = build_optimizer(model, tcfg, params=one)
-    opt_state = stack_replicas(opt.init(one), C)
-    params = stack_replicas(one, C)
+    opt_state = stack_replicas(opt.init(one), n)
+    params = stack_replicas(one, n)
     del one
-    au = torch.full((C,), 1.0 / C, dtype=torch.float32, device=dev)
-    ab = torch.ones((C,), dtype=torch.float32, device=dev)
+    au = torch.full((n,), 1.0 / C, dtype=torch.float32, device=dev)
+    ab = torch.ones((n,), dtype=torch.float32, device=dev)
 
     sim_time = 0.0           # the ideal network spends no simulated time
     start_round = 0
     state_dir = os.path.join(ckpt_dir, "state") if ckpt_dir else None
 
-    def run_state(r):
-        st = {"params": params, "opt_state": opt_state,
+    def run_state(r, p, s):
+        st = {"params": p, "opt_state": s,
               "round": np.int64(r), "sim_time_s": np.float64(sim_time)}
         if scheduler is not None:
             st["scheduler"] = scheduler.state_dict()
@@ -195,8 +227,13 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     if resume and state_dir:
         step = latest_step(state_dir)
         if step is not None:
-            st = load_checkpoint(state_dir, step, run_state(0))
-            params, opt_state = st["params"], st["opt_state"]
+            # the (C, ...) layout of a one-device run; a rank keeps its slice
+            full = lambda t: t.expand(C, *t.shape[1:])
+            st = load_checkpoint(state_dir, step, run_state(
+                0, tree_map(full, params), tree_map(full, opt_state)))
+            params, opt_state = (tree_map(
+                lambda t: t[mine.start:mine.stop].contiguous(), st[k])
+                for k in ("params", "opt_state"))
             start_round = int(st["round"])
             sim_time = float(st["sim_time_s"])
             if scheduler is not None:
@@ -208,7 +245,7 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
     t0 = time.time()
     for r in range(start_round, rounds):
         batch = _client_round_batch(cfg, C, local_steps, micro, seq,
-                                    seed=seed + r, device=dev)
+                                    seed=seed + r, device=dev, clients=mine)
         r0 = _synced_clock(dev)
         if scheduler is None:
             params, opt_state, metrics = round_.fn(params, opt_state, batch,
@@ -221,7 +258,8 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
                 from repro_torch.wireless.population import cohort_report
                 rep = cohort_report(rep, scheduler.last_cohort)
             sim_time += rep.round_time_s
-            mask = torch.as_tensor(rep.mask, dtype=torch.float32, device=dev)
+            mask = torch.as_tensor(rep.mask[mine.start:mine.stop],
+                                   dtype=torch.float32, device=dev)
             params, opt_state, metrics = round_.fn(params, opt_state, batch,
                                                    au, ab, mask)
             net = {"participants": rep.num_participants,
@@ -237,21 +275,57 @@ def train(cfg: ModelConfig, *, params=None, rounds: int = 10,
         log.log(step=r, loss=metrics["loss"], **net,
                 s_per_round=(time.time() - t0) / (r + 1))
         if state_dir and ckpt_every > 0 and (r + 1) % ckpt_every == 0:
-            save_checkpoint(state_dir, r + 1, run_state(r + 1))
+            p, s = _gathered(params, mesh), _gathered(opt_state, mesh)
+            if lead:
+                save_checkpoint(state_dir, r + 1, run_state(r + 1, p, s))
+            del p, s
         if abort_after is not None and r + 1 >= abort_after:
             res.aborted_after = r + 1
             break
     res.params, res.opt_state = params, opt_state
     res.sim_time_s = sim_time
     if res.aborted_after is None:
+        # every rank holds the same global model after the edge step, so
+        # each runs Eq. 18 for all C clients: the one-device numbers
         _personalize(res, model, cfg, tcfg, C, micro, seq, dev, log)
-        if ckpt_dir:
+        if ckpt_dir and lead:
             save_checkpoint(ckpt_dir, rounds,
                             tree_map(lambda x: x[0], params))
             log.log(ckpt=1.0)
     if dev.type == "cuda":
         res.peak_mem_GB = torch.cuda.max_memory_allocated(dev) / 1e9
     return res
+
+
+def _client_mesh(clients: int, dev: torch.device):
+    """The (C, 1) ("data", "model") mesh over the process group, which
+    must have ``clients`` ranks (the reference falls back to its
+    one-device round; here a mismatch is an error)."""
+    world = dist.get_world_size()
+    if world != clients:
+        raise ValueError(f"a process group of {world} ranks cannot train "
+                         f"{clients} clients: the mesh round holds one "
+                         f"client a rank")
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((clients, 1), ("data", "model"), device_type=dev.type)
+
+
+def _gathered(tree, mesh):
+    """The (C, ...) stacked tree of a mesh's ranks on rank 0 (None on the
+    others); the tree itself without a mesh."""
+    if mesh is None:
+        return tree
+    lead = dist.get_rank() == 0
+
+    def one(t):
+        # gloo gathers host tensors only; nccl gathers on the card
+        t = t.contiguous() if dist.get_backend() == "nccl" else t.cpu()
+        parts = ([torch.empty_like(t) for _ in range(dist.get_world_size())]
+                 if lead else None)
+        dist.gather(t, parts, dst=0)
+        return torch.cat(parts) if lead else None
+
+    return tree_map(one, tree)
 
 
 def _personalize(res: TrainResult, model, cfg, tcfg, C, micro, seq, dev,
@@ -497,13 +571,36 @@ def scheduler_from_args(cfg: ModelConfig, args, device=None, telemetry=None):
 
 
 def main(argv=None):
+    """The reference's CLI.  Under ``torchrun`` (``WORLD_SIZE`` set) it
+    first joins the process group, printing the backend and this rank's
+    device; only rank 0 logs, writes telemetry and prints the JSON."""
     args = parse_args(argv)
+    joined = False
+    device = args.device
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        from repro_torch.launch.distributed import init_from_env
+        device, _ = init_from_env(device or "cuda")
+        joined = True
+    if dist.is_initialized() and dist.get_rank() == 0:
+        print(f"[train] mesh backend={dist.get_backend()} world="
+              f"{dist.get_world_size()} device={resolve_device(device)}",
+              flush=True)
+    try:
+        return _main(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _main(args, device):
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     tel = (Telemetry(args.trace_dir, metrics_every=args.metrics_every,
                      kernels=True)
-           if args.trace_dir else Telemetry.disabled())
-    log = MetricLogger("train", telemetry=tel)
+           if args.trace_dir and lead else Telemetry.disabled())
+    log = MetricLogger("train", telemetry=tel,
+                       stream=None if lead else io.StringIO())
     cfg = get_arch(args.arch).reduced()
-    scheduler = scheduler_from_args(cfg, args, args.device, telemetry=tel)
+    scheduler = scheduler_from_args(cfg, args, device, telemetry=tel)
     tel.write_manifest(config=vars(args), seeds={"seed": args.seed},
                        extra={"arch": args.arch, "clients": args.clients})
     res = train(cfg, rounds=args.rounds, clients=args.clients,
@@ -512,8 +609,10 @@ def main(argv=None):
                 finetune_steps=args.finetune_steps, seed=args.seed,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                 resume=args.resume, abort_after=args.abort_after,
-                device=args.device, log=log, scheduler=scheduler)
+                device=device, log=log, scheduler=scheduler)
     tel.close()
+    if not lead:
+        return res
     if res.aborted_after is not None:
         print(json.dumps({"aborted_after_round": res.aborted_after}))
         return res

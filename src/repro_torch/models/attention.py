@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.flash_attention.ops import flash_attention
-from repro_torch.models.init_utils import dense, norm
+from repro_torch.models.init_utils import dense, dense_axes, norm, norm_axes
 from repro_torch.models.layers import apply_mrope, apply_norm, apply_rope
 
 DENSE_MAX_SEQ = 4096          # longest seq K2's backward recomputes whole
@@ -59,6 +59,19 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         p["q_norm"] = norm(cfg.head_dim, "rmsnorm", dtype, gen.device)
         p["k_norm"] = norm(cfg.head_dim, "rmsnorm", dtype, gen.device)
     return p
+
+
+def attn_axes(cfg: ModelConfig) -> dict:
+    a = {"q": dense_axes(("embed", "heads", "head_dim"), bias=cfg.attn_bias),
+         "k": dense_axes(("embed", "kv_heads", "head_dim"),
+                         bias=cfg.attn_bias),
+         "v": dense_axes(("embed", "kv_heads", "head_dim"),
+                         bias=cfg.attn_bias),
+         "o": dense_axes(("heads", "embed"))}
+    if cfg.qk_norm:
+        a["q_norm"] = norm_axes("rmsnorm")
+        a["k_norm"] = norm_axes("rmsnorm")
+    return a
 
 
 def _proj(x, w):
@@ -223,6 +236,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes() -> dict:
+    return {"k": (None, "length", "kv_heads", "head_dim"),
+            "v": (None, "length", "kv_heads", "head_dim")}
 
 
 def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,

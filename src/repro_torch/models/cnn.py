@@ -72,6 +72,14 @@ def init(seed: int, cfg: CNNConfig, dtype=torch.float32, device="cpu"):
     return tree_map(lambda t: t.to(device), _init_tree(g, cfg, dtype))
 
 
+def axes(cfg: CNNConfig) -> dict:
+    """``init``'s tree with logical axis names for leaves."""
+    return {"conv1": {"w": ("conv", "conv", None, None), "b": (None,)},
+            "conv2": {"w": ("conv", "conv", None, None), "b": (None,)},
+            "fc1": {"w": (None, "mlp"), "b": ("mlp",)},
+            "fc2": {"w": ("mlp", None), "b": (None,)}}
+
+
 def param_shapes(cfg: CNNConfig):
     """``init``'s tree with shapes and dtypes only (meta tensors): what
     the byte accounting counts, with no weight drawn."""

@@ -29,8 +29,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.init_utils import dense, embedding, norm
-from repro_torch.models.layers import apply_norm, mlp_apply, mlp_init
+from repro_torch.models.init_utils import (dense, dense_axes, embedding,
+                                           embedding_axes, norm, norm_axes,
+                                           stack_axes)
+from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_axes,
+                                       mlp_init)
 from repro_torch.models.transformer import logits_from_hidden, remat_wrapper
 from repro_torch.utils.tree import tree_map
 
@@ -52,6 +55,17 @@ def _dec_layer_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
             "cross": attn_mod.attn_init(gen, cfg, dtype),
             "ln2": norm(cfg.d_model, cfg.norm, dtype, dev),
             "mlp": mlp_init(gen, cfg, dtype=dtype)}
+
+
+def _enc_layer_axes(cfg: ModelConfig) -> dict:
+    return {"ln1": norm_axes(cfg.norm), "attn": attn_mod.attn_axes(cfg),
+            "ln2": norm_axes(cfg.norm), "mlp": mlp_axes()}
+
+
+def _dec_layer_axes(cfg: ModelConfig) -> dict:
+    return {"ln1": norm_axes(cfg.norm), "self": attn_mod.attn_axes(cfg),
+            "lnx": norm_axes(cfg.norm), "cross": attn_mod.attn_axes(cfg),
+            "ln2": norm_axes(cfg.norm), "mlp": mlp_axes()}
 
 
 def _stacked(layer_init, gen, cfg: ModelConfig, n: int, dtype) -> dict:
@@ -81,6 +95,17 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         "final_norm": norm(d, cfg.norm, dtype, gen.device),
         "lm_head": dense(gen, d, cfg.padded_vocab, dtype=dtype),
     }
+
+
+def axes(cfg: ModelConfig) -> dict:
+    """``init``'s tree with logical axis names for leaves."""
+    return {"src_proj": dense_axes(("embed", "embed")),
+            "encoder": stack_axes(_enc_layer_axes(cfg)),
+            "enc_norm": norm_axes(cfg.norm),
+            "embed": embedding_axes(),
+            "decoder": stack_axes(_dec_layer_axes(cfg)),
+            "final_norm": norm_axes(cfg.norm),
+            "lm_head": dense_axes(("embed", "vocab"))}
 
 
 # ------------------------------------------------------------- apply -------

@@ -5,7 +5,9 @@ holds billions of parameters, so the LM path draws them on the card with
 a CUDA generator: drawing on the host and copying would take minutes.
 A ``shape_generator()`` puts the draws on the meta device: the tree then
 has every shape and dtype and holds no values, which is all the byte
-accounting (``core.comm``) needs.
+accounting (``core.comm``) and the sharding rules need.  Each
+``*_axes`` function gives its init's tree with logical axis names for
+leaves.
 """
 
 from __future__ import annotations
@@ -64,3 +66,29 @@ def norm(d: int, kind: str, dtype=torch.float32, device="cpu") -> dict:
 def embedding(gen: torch.Generator, vocab: int, d: int,
               dtype=torch.float32) -> dict:
     return {"table": truncated_normal(gen, (vocab, d), 1.0, dtype)}
+
+
+# ---- axes trees: the params trees above with a tuple of logical axis
+# names (sharding.rules.LOGICAL_AXES) for each leaf, one name per dim ----
+def dense_axes(axes: tuple, *, bias: bool = False) -> dict:
+    out = {"w": axes}
+    if bias:
+        out["b"] = axes[1:]
+    return out
+
+
+def norm_axes(kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
+def stack_axes(axes_tree):
+    """Prefix every axes leaf with the scanned 'stack' dim."""
+    if isinstance(axes_tree, dict):
+        return {k: stack_axes(v) for k, v in axes_tree.items()}
+    return ("stack", *axes_tree)

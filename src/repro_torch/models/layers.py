@@ -111,6 +111,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int | None = None,
     }
 
 
+def mlp_axes() -> dict:
+    from repro_torch.models.init_utils import dense_axes
+    return {"gate": dense_axes(("embed", "mlp")),
+            "up": dense_axes(("embed", "mlp")),
+            "down": dense_axes(("mlp", "embed"))}
+
+
 def mlp_apply(p, x, act_name: str):
     act = activation(act_name)
     h = act(x @ p["gate"]["w"]) * (x @ p["up"]["w"])

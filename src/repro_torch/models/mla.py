@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import _bias, _proj, self_attention
-from repro_torch.models.init_utils import dense, norm
+from repro_torch.models.init_utils import dense, dense_axes, norm, norm_axes
 from repro_torch.models.layers import apply_norm, apply_rope
 
 
@@ -46,6 +46,16 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         "o": dense(gen, h * m.v_head_dim, cfg.d_model, dtype=dtype,
                    scale=1.0 / math.sqrt(h * m.v_head_dim)),
     }
+
+
+def mla_axes(cfg: ModelConfig) -> dict:
+    return {"q_a": dense_axes(("embed", None)),
+            "q_a_norm": norm_axes("rmsnorm"),
+            "q_b": dense_axes((None, "heads", "head_dim")),
+            "kv_a": dense_axes(("embed", None)),
+            "kv_a_norm": norm_axes("rmsnorm"),
+            "kv_b": dense_axes((None, "heads", "head_dim")),
+            "o": dense_axes(("heads", "embed"))}
 
 
 def _project_q(p, cfg: ModelConfig, x, positions):

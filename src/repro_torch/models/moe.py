@@ -13,7 +13,10 @@ goes through ``torch.matmul``: one host read of the group sizes per call
 skipped.  The reference's combine is a scatter-add (``.at[st].add``);
 on the card ``index_add_`` is atomic and does not repeat, so the pairs
 are gathered back to (N, K, D) by the inverse permutation and added over
-K in a fixed order instead.  Casts follow the reference: the router in
+K in a fixed order instead.  The dispatch gathers the K-fold repeated
+tokens by the sort's permutation for the same reason: its backward then
+sums each token's K gradients in a fixed order, and a backward pass
+repeats bit for bit.  Casts follow the reference: the router in
 float32, top-k weights renormalised with a 1e-9 clamp, the weights cast
 to the expert output's dtype before the product, the combine in that
 dtype, and the Switch auxiliary loss in float32.
@@ -26,7 +29,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.init_utils import dense, truncated_normal
+from repro_torch.models.init_utils import dense, dense_axes, truncated_normal
 from repro_torch.models.layers import activation
 
 group_size_reads = 0      # host reads of the group sizes in this process
@@ -58,6 +61,18 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
     return p
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    a = {"router": dense_axes(("embed", None)),
+         "w_gate": ("expert", "embed", "mlp"),
+         "w_up": ("expert", "embed", "mlp"),
+         "w_down": ("expert", "mlp", "embed")}
+    if cfg.moe.num_shared_experts:
+        a["shared"] = {"gate": dense_axes(("embed", "mlp")),
+                       "up": dense_axes(("embed", "mlp")),
+                       "down": dense_axes(("mlp", "embed"))}
+    return a
+
+
 def route(p, cfg: ModelConfig, flat):
     """Router of (N, D) tokens: the renormalised top-k weights (N, K),
     experts (N, K) and pairs routed to each expert (E,), and the Switch
@@ -87,7 +102,10 @@ def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None):
     # ---- sort token-expert pairs by expert (stable, as jnp.argsort) ----
     flat_e = top_e.reshape(-1)                                  # (N*K,)
     order = torch.argsort(flat_e, stable=True)
-    xs = flat[order // moe.top_k]                               # (N*K, D)
+    # flat[order // K], as a permutation of the K-fold repeated rows: its
+    # backward scatters unique indices and sums the K copies of a token in
+    # a fixed order (a gather of repeated rows accumulates in thread order)
+    xs = flat.repeat_interleave(moe.top_k, 0)[order]            # (N*K, D)
     sizes = counts.tolist()
     group_size_reads += 1
 

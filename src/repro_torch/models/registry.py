@@ -17,6 +17,7 @@ from repro_torch.models import transformer as tf_mod
 class Model:
     cfg: ModelConfig
     init: Callable                    # (gen, dtype=None) -> params
+    axes: Callable                    # () -> axes tree
     apply: Callable                   # (params, batch, **kw) -> (hidden, aux)
     loss: Callable                    # (params, batch, **kw) -> scalar
     init_cache: Callable              # (batch, max_len, dtype, device)
@@ -30,6 +31,9 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def init(gen, dtype=None):
         return mod.init(gen, cfg, dtype=dtype)
+
+    def axes():
+        return mod.axes(cfg)
 
     def apply(params, batch, *, impl="auto", remat=False, remat_policy=None):
         return mod.apply(params, cfg, batch, impl=impl, remat=remat,
@@ -56,4 +60,4 @@ def build_model(cfg: ModelConfig) -> Model:
     def logits(params, hidden):
         return tf_mod.logits_from_hidden(params, cfg, hidden)
 
-    return Model(cfg, init, apply, loss, init_cache, decode_step, logits)
+    return Model(cfg, init, axes, apply, loss, init_cache, decode_step, logits)

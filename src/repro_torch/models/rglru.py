@@ -31,7 +31,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.rglru_scan.ops import rglru_scan
 from repro_torch.hopper.rglru_scan.ref import rglru_scan_assoc
-from repro_torch.models.init_utils import dense, truncated_normal
+from repro_torch.models.init_utils import (dense, dense_axes,
+                                           truncated_normal)
 from repro_torch.models.layers import activation
 from repro_torch.models.xlstm import causal_conv1d
 
@@ -64,6 +65,18 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         "lam": lam,
         "out": dense(gen, w, cfg.d_model, dtype=dtype),
     }
+
+
+def rglru_axes(cfg: ModelConfig) -> dict:
+    return {"in_x": dense_axes(("embed", "lru")),
+            "in_gate": dense_axes(("embed", "lru")),
+            "conv": ("conv", "lru"),
+            "w_a": dense_axes(("lru", "lru")),
+            "w_x": dense_axes(("lru", "lru")),
+            "b_a": ("lru",),
+            "b_x": ("lru",),
+            "lam": ("lru",),
+            "out": dense_axes(("lru", "embed"))}
 
 
 def _softplus(x):

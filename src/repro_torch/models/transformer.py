@@ -39,8 +39,11 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.init_utils import dense, embedding, norm
-from repro_torch.models.layers import apply_norm, mlp_apply, mlp_init, softcap
+from repro_torch.models.init_utils import (dense, dense_axes, embedding,
+                                           embedding_axes, norm, norm_axes,
+                                           stack_axes)
+from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_axes,
+                                       mlp_init, softcap)
 from repro_torch.utils.tree import tree_map
 
 LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
@@ -166,6 +169,27 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_id: int,
     return p
 
 
+def layer_axes(cfg: ModelConfig, layer_id: int) -> dict:
+    """``init_layer``'s tree with logical axis names for leaves."""
+    kind = _layer_kind(cfg, layer_id)
+    if kind in XLSTM_KINDS:
+        block_axes = (xlstm_mod.slstm_axes if kind == SLSTM
+                      else xlstm_mod.mlstm_axes)
+        return {"ln1": norm_axes(cfg.norm), "block": block_axes(cfg)}
+    a = {"ln1": norm_axes(cfg.norm), "ln2": norm_axes(cfg.norm)}
+    if kind == MLA_ATTN:
+        a["mla"] = mla_mod.mla_axes(cfg)
+    elif kind == RGLRU:
+        a["rec"] = rglru_mod.rglru_axes(cfg)
+    else:
+        a["attn"] = attn_mod.attn_axes(cfg)
+    if _layer_is_moe(cfg, layer_id):
+        a["moe"] = moe_mod.moe_axes(cfg)
+    else:
+        a["mlp"] = mlp_axes()
+    return a
+
+
 # -------------------------------------------------------- layer apply ------
 def _ffn(p, cfg: ModelConfig, h):
     """The layer's FFN: (y, MoE aux loss, or None for a dense MLP)."""
@@ -269,6 +293,21 @@ def init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
                 f"b{j}": init_layer(gen, cfg, lid, dtype)
                 for j, lid in enumerate(st.layer_ids)}
     return params
+
+
+def axes(cfg: ModelConfig) -> dict:
+    """``init``'s tree with logical axis names for leaves (a scan stage's
+    leaves lead with "stack")."""
+    ax = {"embed": embedding_axes(),
+          "final_norm": norm_axes(cfg.norm),
+          "lm_head": dense_axes(("embed", "vocab"))}
+    for si, st in enumerate(compute_stages(cfg)):
+        blocks = {}
+        for j, lid in enumerate(st.layer_ids):
+            la = layer_axes(cfg, lid)
+            blocks[f"b{j}"] = stack_axes(la) if st.which == "scan" else la
+        ax[f"stage{si}"] = blocks
+    return ax
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):

@@ -35,7 +35,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.mlstm_chunk.ops import mlstm_chunk
 from repro_torch.hopper.mlstm_chunk.ref import (  # noqa: F401 (re-exported)
     MLSTM_CHUNK, NEG_BIG, mlstm_chunkwise, mlstm_step)
-from repro_torch.models.init_utils import dense, norm, truncated_normal
+from repro_torch.models.init_utils import (dense, dense_axes, norm,
+                                           norm_axes, truncated_normal)
 from repro_torch.models.layers import activation, apply_norm
 
 
@@ -59,6 +60,18 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         "out_norm": norm(dh, "rmsnorm", dtype, gen.device),  # per-head norm
         "down": dense(gen, di, d, dtype=dtype),
     }
+
+
+def mlstm_axes(cfg: ModelConfig) -> dict:
+    return {"up": dense_axes(("embed", "mlp")),
+            "conv": ("conv", "mlp"),
+            "q": dense_axes(("mlp", "mlp")),
+            "k": dense_axes(("mlp", "mlp")),
+            "v": dense_axes(("mlp", "mlp")),
+            "i_gate": dense_axes(("mlp", None)),
+            "f_gate": dense_axes(("mlp", None)),
+            "out_norm": norm_axes("rmsnorm"),
+            "down": dense_axes(("mlp", "embed"))}
 
 
 def causal_conv1d(x, w, state=None):
@@ -155,6 +168,16 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> dict:
         "up": dense(gen, d, dff, dtype=dtype),
         "down": dense(gen, dff, d, dtype=dtype),
     }
+
+
+def slstm_axes(cfg: ModelConfig) -> dict:
+    return {"w": dense_axes(("embed", "mlp")),
+            "r": (None, None, None),      # hidden-to-hidden: replicated
+            "b": (None,),
+            "out_norm": norm_axes("rmsnorm"),
+            "up_gate": dense_axes(("embed", "mlp")),
+            "up": dense_axes(("embed", "mlp")),
+            "down": dense_axes(("mlp", "embed"))}
 
 
 def _slstm_cell(r32, wx_t, state):

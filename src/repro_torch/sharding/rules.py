@@ -1,0 +1,138 @@
+"""Logical-axis -> mesh-axis partitioning rules (``repro.sharding.rules``).
+
+Every model's ``axes()`` returns a tree parallel to its params whose
+leaves are tuples of logical axis names, one per dim (``("embed",
+"mlp")``); this module turns them into partition specs for a mesh, with
+the reference's divisibility fallback (a dim that does not divide evenly
+over its mesh axes is replicated) and its rule that no mesh axis shards
+two dims of one tensor.
+
+A spec is a tuple with one entry per dim: None (replicated), a mesh axis
+name, or a tuple of names, the entries of the reference's
+``PartitionSpec``.  The rules read only the mesh's axis names and sizes,
+so they take an :class:`AbstractMesh` as well as a ``DeviceMesh``: the
+production (16, 16) and (2, 16, 16) meshes can be reasoned about on one
+CPU.
+
+Two modes:
+
+- ``tp``       tensor-parallel only ("model" axis): inside the
+               paper-faithful PHSFL round, where "pod"/"data" are the
+               client axes and each client owns a full replica.
+- ``fsdp_tp``  also shards the d_model ("embed") dim of the weights over
+               the client axes (ZeRO-3 / FSDP style): the shared-server
+               mode and serving.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+from repro_torch.utils.tree import axes_map
+
+# canonical logical axis names used by the model zoo
+LOGICAL_AXES = (
+    "vocab",       # vocabulary dim
+    "embed",       # d_model dim
+    "mlp",         # d_ff dim
+    "heads",       # query-head dim (fused heads*head_dim or head count)
+    "kv_heads",    # kv-head count dim
+    "head_dim",    # per-head feature dim
+    "expert",      # MoE expert count dim
+    "lru",         # RG-LRU width dim
+    "stack",       # scanned-layer stack dim
+    "conv",        # conv kernel spatial dims
+)
+
+# tensor-parallel rules: logical axis -> mesh axes
+_TP_RULES = {
+    "vocab": ("model",),
+    "mlp": ("model",),
+    "heads": ("model",),
+    "expert": ("model",),
+    "lru": ("model",),
+}
+
+# kv_heads shard over model only when the count divides (the divisibility
+# check below applies to every rule alike)
+_TP_OPTIONAL = {
+    "kv_heads": ("model",),
+}
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis names and sizes, with no process group."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def as_abstract(mesh) -> AbstractMesh:
+    """The names and sizes of an :class:`AbstractMesh` or a
+    ``torch.distributed.device_mesh.DeviceMesh``."""
+    if isinstance(mesh, AbstractMesh):
+        return mesh
+    return AbstractMesh(tuple(mesh.mesh_dim_names), tuple(mesh.shape))
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes that play the client / batch role."""
+    names = as_abstract(mesh).axis_names
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _axis_size(mesh: AbstractMesh, names: tuple[str, ...]) -> int:
+    size = 1
+    for n in names:
+        size *= mesh.shape[n]
+    return size
+
+
+def spec_for(shape: tuple[int, ...], axes: tuple[Any, ...], mesh,
+             mode: str = "tp") -> tuple:
+    """The partition spec of one tensor given its logical axes."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} vs axes {axes}")
+    mesh = as_abstract(mesh)
+    used: set[str] = set()
+    entries: list[Any] = []
+    for dim, ax in zip(shape, axes):
+        assigned = None
+        candidates: tuple[str, ...] = ()
+        if ax in _TP_RULES:
+            candidates = _TP_RULES[ax]
+        elif ax in _TP_OPTIONAL:
+            candidates = _TP_OPTIONAL[ax]
+        elif ax == "embed" and mode == "fsdp_tp":
+            candidates = data_axes(mesh)
+        if (candidates and not set(candidates) & used
+                and all(c in mesh.axis_names for c in candidates)
+                and dim % _axis_size(mesh, candidates) == 0):
+            assigned = candidates if len(candidates) > 1 else candidates[0]
+            used.update(candidates)
+        entries.append(assigned)
+    return tuple(entries)
+
+
+def params_specs(params, axes_tree, mesh, mode: str = "tp"):
+    """A params tree (tensors, or anything with ``.shape``: meta tensors
+    will do) and its axes tree -> a tree of partition specs."""
+    mesh = as_abstract(mesh)
+    return axes_map(lambda p, a: spec_for(tuple(p.shape), a, mesh, mode),
+                    params, axes_tree)
+
+
+def add_client_axis(spec_tree, mesh):
+    """Prefix every spec with the client axes (paper-faithful mode):
+    per-client replicas carry a leading dim of pods x clients_per_pod,
+    sharded over ("pod", "data")."""
+    ca = data_axes(mesh)
+    lead = ca if len(ca) > 1 else ca[0]
+    if isinstance(spec_tree, dict):
+        return {k: add_client_axis(v, mesh) for k, v in spec_tree.items()}
+    return (lead, *spec_tree)

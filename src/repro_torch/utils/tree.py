@@ -3,7 +3,10 @@
 The port keeps the reference's tree layout (``{"conv1": {"w", "b"}, ...}``;
 the recurrent decode caches hold tuples, as the mLSTM carry ``(C, n, m)``)
 and needs only a few helpers over it; ``tree_weighted_sum`` is a copy of
-``repro.utils.tree.tree_weighted_sum`` (the FedAvg primitive).
+``repro.utils.tree.tree_weighted_sum`` (the FedAvg primitive).  An axes
+tree (``Model.axes``) mirrors a params tree with tuples of logical axis
+names for leaves (``axes_leaf``); ``axes_map`` walks the two side by
+side.
 """
 
 from __future__ import annotations
@@ -11,6 +14,13 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator
 
 PyTree = Any
+
+
+def axes_leaf(x: Any) -> bool:
+    """A leaf of an axes tree: a tuple of logical axis names (str or
+    None), one per dim of the parameter it describes."""
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
@@ -61,6 +71,21 @@ def map_with_path(fn: Callable, tree: PyTree, prefix: str = "") -> PyTree:
         return tuple(map_with_path(fn, t, f"{prefix}{i}/")
                      for i, t in enumerate(tree))
     return fn(prefix[:-1], tree)
+
+
+def axes_map(fn: Callable, params: PyTree, axes: PyTree) -> PyTree:
+    """``fn(leaf, axes_leaf)`` over a params tree and its axes tree,
+    matched by key: a params dict and its axes dict must hold the same
+    keys, and each tensor meets its tuple of axis names."""
+    if isinstance(params, dict):
+        if not isinstance(axes, dict) or set(params) != set(axes):
+            got = axes if axes_leaf(axes) else sorted(axes)
+            raise ValueError(f"params/axes trees disagree: {sorted(params)}"
+                             f" vs {got}")
+        return {k: axes_map(fn, params[k], axes[k]) for k in params}
+    if not axes_leaf(axes):
+        raise ValueError(f"params leaf meets axes subtree {axes!r}")
+    return fn(params, axes)
 
 
 def tree_leaves(tree: PyTree) -> list:

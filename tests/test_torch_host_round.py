@@ -48,6 +48,19 @@ C, K, MICRO, SEQ = 4, 2, 2, 32
 TOL = dict(rtol=2e-5, atol=2e-6)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one intra-op thread.  The tier-1 run puts six
+    test processes on eight cores; torch's default of a thread a core
+    then spends most of a small op waiting on the others (and starves the
+    reference's side), which made this file one of the slowest.  The
+    tolerances and assertions are the same at any thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flat_j(tree):
     out = {}
     j_map_with_path(lambda p, x: out.setdefault(p, np.asarray(x)), tree)

@@ -151,3 +151,26 @@ def test_router_weights_renormalise_with_the_clamp(setup):
     assert bool((top_w[:, :-1] >= top_w[:, 1:]).all())   # sorted, as top_k
     assert top_e.shape == (8, cfg.moe.top_k)
     assert int(counts.sum()) == 8 * cfg.moe.top_k
+
+
+def test_model_backward_repeats_bit_for_bit():
+    """F4's witness: two backward passes of olmoe-1b-7b reduced to four
+    layers give the same gradients, bit for bit (the dispatch's gather of
+    repeated tokens once summed them in thread order)."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    cfg = get_arch("olmoe-1b-7b").reduced(num_layers=4)
+    model = build_model(cfg)
+    params = model.init(make_generator(0))
+    rng = np.random.default_rng(7)
+    mb = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))
+                              .astype(np.int32)) for k in ("tokens",
+                                                            "labels")}
+
+    def grads():
+        leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+        return torch.autograd.grad(model.loss(leaves, mb),
+                                   tree_leaves(leaves))
+
+    first = grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, grads()))

@@ -36,6 +36,29 @@ ROOT = Path(__file__).resolve().parent.parent
 FLAGS = ["--rounds", "2", "--clients", "2", "--seq", "64"]
 TOL = dict(rtol=2e-5, atol=2e-6)
 STEP = "ckpt_00000002.npz"
+ALL_THREADS = torch.get_num_threads()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one intra-op thread.  The tier-1 run puts six
+    test processes on eight cores; torch's default of a thread a core
+    then spends most of a small op waiting on the others (and starves the
+    reference's side), which made this file one of the slowest.  The
+    tolerances and assertions are the same at any thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def all_threads():
+    """Every thread, for the bit-for-bit checks: an order that depends on
+    the threads (F2's embedding backward) shows only with several."""
+    torch.set_num_threads(ALL_THREADS)
+    yield
+    torch.set_num_threads(1)
 
 _REFERENCE = r"""
 import sys, types
@@ -144,7 +167,7 @@ def test_train_lines_carry_the_reference_keys(tmp_path, capsys):
     assert res.peak_mem_GB is None           # no device number on the CPU
 
 
-def test_kill_and_resume_is_bit_identical(tmp_path, capsys):
+def test_kill_and_resume_is_bit_identical(tmp_path, capsys, all_threads):
     # two rounds of two clients as FLAGS, at one local step over 16
     # tokens: the same resume path at an eighth of the sLSTM loop's steps
     # a round
@@ -194,7 +217,7 @@ def test_no_card_raises_unless_cpu_is_asked_for():
         ttrain.train(get_arch("xlstm-350m").reduced(), rounds=1)
 
 
-def test_local_step_gradients_repeat_bit_for_bit():
+def test_local_step_gradients_repeat_bit_for_bit(all_threads):
     """What the bit-identical resume rests on: the same step twice gives
     the same gradients, bit for bit, with repeated tokens summed into the
     embedding's rows by several threads (the CPU's ``index_put_`` with

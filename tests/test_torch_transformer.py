@@ -33,6 +33,19 @@ from repro_torch.utils.tree import tree_leaves_with_path
 TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one intra-op thread.  The tier-1 run puts six
+    test processes on eight cores; torch's default of a thread a core
+    then spends most of a small op waiting on the others (and starves the
+    reference's side), which made this file one of the slowest.  The
+    tolerances and assertions are the same at any thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     j_cfg = j_get_arch("gemma3-12b").reduced(num_layers=12)
