@@ -180,8 +180,8 @@ caught):
     parameters and states within 2e-4 (bit-equality reported), K3 twice
     per mLSTM layer a local step (the recompute) against once;
 21. train_xlstm: PHSFL training at xlstm-350m's published config whole
-    (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 2
-    rounds, then the head bank and both evaluations, counts set to 0
+    (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 1
+    round, then the head bank and both evaluations, counts set to 0
     just before and read just after; the head frozen bit for bit, the
     clients equal after the edge step, a positive personalization gain;
     then one local step's profile (forward and backward on the host's
@@ -260,10 +260,29 @@ caught):
     tokens: the params bit-equal to the host round's (sha256 of every
     leaf), each rank's round wall time, peak, K2 launches and the seconds
     and bytes of its edge ``all_reduce``;
+    steps_gemma (after mesh_nccl): the step builders
+    (``launch/steps.build_step``) at gemma3-12b cut to 12 layers, full
+    width, bf16, on a (data 1, model 1) mesh of one NCCL rank: prefill
+    at 32768 tokens, 8 decode steps over a 32768-token cache and the
+    train round at 4096 tokens (1 client x 2 local steps), each bit-equal
+    to the entry point it wraps, with its time, peak and K2 launches
+    against their reckoning;
+    tp_gemma (inside reference_mesh's spawn, its references computed
+    before it): tensor parallelism over a (data 2, model 2) mesh of the
+    same four ranks, gemma3-12b at 2 layers (bf16) and reduced (float32):
+    the prefill step's logits and the train round's update (after -
+    before, a learning rate that lifts the bf16 update far above the
+    weights' rounding) within 2e-2 / 2e-5 of model 1, the "model"
+    group's ``all_reduce`` seconds and bytes, K2's launches a rank;
+    dryrun (last): the port's dry run of gemma3-12b x the four shapes on
+    the (16, 16) mesh over a fake group of 256 ranks, fake CUDA tensors:
+    each record's terms, traced against analytic FLOPs and collectives,
+    the traced peak, no K2 launch;
 33. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
     phases, the telemetry phases, the zoo's and seamless's, on the mesh
-    phases by run and by rank, with each probe's wall time), then
+    phases by run and by rank, on the launch tools' phases, with each
+    probe's wall time), then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -363,10 +382,11 @@ TRAIN_REFERENCE = dict(rounds=2, clients=2, local_steps=2, micro=2, seq=64,
                        lr=0.05, finetune_steps=5, seed=0)
 TRAIN_TOL = MLSTM_TOL["float32"]
 # train_xlstm: the whole published config on the reference CLI's traffic
-# (4 clients in 1 ES, kappa0 = 2 steps of micro-batch 2, 5 head steps), 2
-# rounds; 256 tokens (not 2048: the sLSTM's Python loop over time sets
-# the time) and the paper's eta = 0.01 (TrainConfig's default)
-TRAIN_XLSTM = dict(rounds=2, clients=4, local_steps=2, micro=2, seq=256,
+# (4 clients in 1 ES, kappa0 = 2 steps of micro-batch 2, 5 head steps), 1
+# round (a second repeats the first's work, ~44 s of the script's 1200 s
+# limit); 256 tokens (not 2048: the sLSTM's Python loop over time sets the
+# time) and the paper's eta = 0.01 (TrainConfig's default)
+TRAIN_XLSTM = dict(rounds=1, clients=4, local_steps=2, micro=2, seq=256,
                    lr=0.01, finetune_steps=5, seed=0)
 # train_xlstm_2048: one round at the published context of 2048 tokens
 # (eight of K3's 256-row state chunks a sequence), cut to 2 clients of one
@@ -375,7 +395,7 @@ TRAIN_XLSTM = dict(rounds=2, clients=4, local_steps=2, micro=2, seq=256,
 TRAIN_XLSTM_CONTEXT = dict(TRAIN_XLSTM, rounds=1, clients=2, local_steps=1,
                            seq=2048)
 # host-clock repeats of the profiled local step's forward and backward
-TRAIN_STEP_REPEATS = 3
+TRAIN_STEP_REPEATS = 2
 # train_rglru: recurrentgemma-2b's published widths cut to 3 layers
 # (RG-LRU, RG-LRU, local attention), 2 clients, 1 round of one step on
 # 2 x 512 tokens (K4's backward is a Python loop over S)
@@ -2209,7 +2229,7 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
     d_model 1024, mLSTM heads of 512, vocab 50304, bf16) through
     train(): the reference CLI's traffic (4 clients in 1 ES, kappa0 = 2
     local steps of micro-batch 2, 5 head steps) with lr 0.01, the paper's
-    eta; TRAIN_XLSTM runs 2 rounds at 256 tokens a sequence (the sLSTM's
+    eta; TRAIN_XLSTM runs 1 round at 256 tokens a sequence (the sLSTM's
     Python loop over time), TRAIN_XLSTM_CONTEXT one round of 2 clients x
     one step at the published 2048.  Counts set to 0 just before and
     read just after.
@@ -4311,10 +4331,12 @@ def phase_mesh_nccl(torch, np, kernels):
     return {"xlstm_round": round_counts, **shared_counts}
 
 
-def _reference_mesh_rank(rank, world, dev, inputs):
+def _reference_mesh_rank(rank, world, dev, inputs, tp_refs=None):
     """One client rank of reference_mesh on the shared card: the three
     mesh rounds from the same inputs (its K2 launches counted), and on
-    rank 0 the port's host round of all four clients on the card."""
+    rank 0 the port's host round of all four clients on the card; then,
+    with ``tp_refs``, tp_gemma's (data 2, model 2) mesh over the same
+    ranks (``_tp_gemma_rank``)."""
     import torch
     from repro_torch.core.phsfl import client_index, make_phsfl_round
     from repro_torch.hopper.flash_attention import kernel as fa
@@ -4350,6 +4372,10 @@ def _reference_mesh_rank(rank, world, dev, inputs):
     if rank == 0:
         out["host"] = _reference_mesh_host(torch, model, hcfg, tcfg, params,
                                            state, batch, au, ab, dev)
+    if tp_refs is not None:
+        del params, state, batch, args
+        torch.cuda.empty_cache()
+        out["tp"] = _tp_gemma_rank(rank, dev, tp_refs)
     return out
 
 
@@ -4383,7 +4409,7 @@ def _reference_mesh_host(torch, model, hcfg, tcfg, params, state, batch,
     return out
 
 
-def phase_reference_mesh(torch, np, kernels):
+def phase_reference_mesh(torch, np, kernels, tp_refs=None):
     """``make_phsfl_round`` on four ranks spawned on the one card over gloo
     (pod 2 x data 2 x model 1: two ESs of two clients), reduced
     mistral-large-123b (float32; K2 in its attention), 2 local steps of
@@ -4391,7 +4417,9 @@ def phase_reference_mesh(torch, np, kernels):
     then masked with two clients lost (one an ES) and with ES 0 emptied.
     Each rank's client against the port's host round of the four clients
     on the card (bit for bit, as predicted) and on the CPU (within
-    MESH_TOL).  Each rank counts its own K2 launches."""
+    MESH_TOL).  Each rank counts its own K2 launches.  With ``tp_refs``
+    the same ranks then run tp_gemma (``_tp_gemma_rank``).  Returns the
+    counts and the ranks' results."""
     from repro_torch.core.phsfl import build_optimizer, stack_replicas
     from repro_torch.launch.distributed import spawn
     from repro_torch.launch.train import _client_round_batch
@@ -4414,8 +4442,8 @@ def phase_reference_mesh(torch, np, kernels):
                    for x in (params, state, batch, au, ab))
     torch.cuda.empty_cache()
     ranks, wall = sync_time(torch, lambda: spawn(
-        _reference_mesh_rank, C, (inputs,), device="cuda", threads=2,
-        timeout=600))
+        _reference_mesh_rank, C, (inputs, tp_refs), device="cuda",
+        threads=2, timeout=600))
     card = ranks[0]["host"]
     rows = {}
     for case in ("plain", *MESH_MASKS):
@@ -4453,7 +4481,7 @@ def phase_reference_mesh(torch, np, kernels):
         assert abs(row["loss"] - row["loss_cpu_host"]) <= MESH_TOL * abs(
             row["loss_cpu_host"]), (case, row)
     assert all(n == expected for n in per_rank), (per_rank, expected)
-    return {"flash_attention": per_rank}
+    return {"flash_attention": per_rank}, ranks
 
 
 def _digests(tree, clients) -> dict:
@@ -4580,6 +4608,605 @@ def phase_train_mesh_seamless(torch, np, kernels):
     return {"flash_attention": [r["flash_launches"] for r in ranks]}
 
 
+# ------------------------------------------------ the launch tools (PR 23) --
+# steps_gemma: gemma3-12b at the serving cell's cut (12 layers, 4.70 B),
+# full width, bf16, through steps.build_step on a (data 1, model 1) mesh of
+# one NCCL rank; each shape's name, length and kind as published, the
+# batch cut as listed (prefill 32 -> 1, decode 128 -> 2, train 256 -> 2:
+# 1 client x 2 local steps x micro 1)
+STEPS_GEMMA_LAYERS = 12
+STEPS_GEMMA = {"prefill": ("prefill_32k", 32768, 1, "prefill"),
+               "decode": ("decode_32k", 32768, 2, "decode"),
+               "train": ("train_4k", 4096, 2, "train")}
+STEPS_DECODE_STEPS = 8
+# tp_gemma: tensor parallelism on the one card, inside reference_mesh's
+# four gloo ranks, over a second mesh (data 2, model 2): gemma3-12b at 2
+# layers, full width, bf16, and its reduced() config in float32; the
+# prefill step (2 x 2048 tokens, fsdp_tp: the embed dims gathered over
+# "data") and the train round (2 clients x 2 local steps x 1 x 1024
+# tokens, remat "full") against the same computations at model 1 on the
+# card; the reference's tolerances (tests/test_kernels.py:34): the
+# logits' relative to their largest magnitude above 1, the round's on each
+# leaf's update (after - before) relative to the update's largest
+# magnitude, plus the rounding of the stored weights: one ulp of the
+# leaf's largest value for each write of them (the 2 local steps and the
+# edge average).  At the paper's 0.01 a bf16 weight of this width moves
+# by far less than its ulp and most do not move at all, so the bf16
+# case's learning rate is 1000, which lifts the weights' updates to
+# several ulps (the phase prints each case's largest update, margins and
+# the leaves that did not move: in bf16 the norm scales, whose float32
+# case checks them).  The update must stand TP_MARGIN times above its
+# limit on the median leaf: a leaf's gradient half lost (a missing sum
+# over "model") then errs by 1.5 limits
+TP_GEMMA_LAYERS = 2
+TP_PREFILL = ("prefill_tp", 2048, 2, "prefill")
+TP_TRAIN = ("train_tp", 1024, 4, "train")
+TP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TP_LR = {"float32": 0.01, "bfloat16": 1000.0}
+TP_MARGIN = 3
+TP_ALPHA_U = (0.5, 0.5)
+# dryrun: the port's dry run on the card's machine, gemma3-12b whole on the
+# (16, 16) production mesh over a fake group of 256 ranks, fake CUDA tensors
+DRYRUN_ARCH = "gemma3-12b"
+
+
+def _gemma_cut(layers):
+    import dataclasses
+    from repro_torch.configs.registry import get_arch
+    return dataclasses.replace(get_arch("gemma3-12b"), num_layers=layers)
+
+
+def _tensors_equal(torch, a, b) -> bool:
+    from repro_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def phase_steps_gemma(torch, np, kernels):
+    """The step builders on the card: gemma3-12b at 12 layers, full width,
+    bf16, on a (data 1, model 1) mesh of one NCCL rank in this process.
+    prefill at prefill_32k's 32768 tokens (batch cut to 1) against
+    ``transformer.prefill``; decode over decode_32k's 32768-token cache
+    (batch cut to 2; random bf16 contents) for 8 steps at its last
+    positions against the ``decode_step`` loop; the train round at
+    train_4k's 4096 tokens (1 client x 2 local steps x micro 1, the
+    default TrainConfig: remat "full") against ``make_host_round`` at
+    C = 1.  Each bit for bit, on the same parameters and inputs.  Counts
+    set to 0 just before each bundle's run and read just after."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.configs.base import (HierarchyConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.core.phsfl import (build_optimizer, make_host_round,
+                                        stack_replicas)
+    from repro_torch.launch import analytic, roofline
+    from repro_torch.launch.distributed import free_port
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = _gemma_cut(STEPS_GEMMA_LAYERS)
+    model = build_model(cfg)
+    params = model.init(make_generator(0, "cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    n_attn = attention_layers(cfg)
+    rows = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+
+        # ---- prefill ----
+        shape = ShapeConfig(*STEPS_GEMMA["prefill"])
+        b = build_step(cfg, shape, mesh)
+        g = torch.Generator().manual_seed(1)
+        tok = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                shape.seq_len),
+                            generator=g).to("cuda")
+        batch = {"tokens": tok, "labels": tok}
+        b.fn(params, batch)                              # warm-up
+        reset_counts(kernels)
+        got, wall = sync_time(torch, lambda: b.fn(params, batch))
+        counts = read_counts(kernels)
+        want = tf.prefill(params, cfg, batch)[0]
+        fwd = analytic.forward_flops_per_token(cfg, shape.seq_len,
+                                               causal_half=True)
+        tokens = shape.global_batch * shape.seq_len
+        rows["prefill"] = {
+            "shape": STEPS_GEMMA["prefill"], "bit_equal": bool(
+                torch.equal(got, want)),
+            "seconds": wall, "tokens_per_s": tokens / wall,
+            "bound_s": fwd * tokens / roofline.PEAK_FLOPS,
+            "bound_from": "analytic forward FLOPs (flash) / 989 TFLOP/s",
+            "finite": bool(torch.isfinite(got).all()),
+            "launches": counts, "launches_expected": n_attn}
+        del got, want, batch, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- decode ----
+        shape = ShapeConfig(*STEPS_GEMMA["decode"])
+        b = build_step(cfg, shape, mesh)
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 dtype=torch.bfloat16, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for leaf in tree_leaves(cache):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda")
+                       * 0.5)
+        cache_b = tree_map(torch.clone, cache)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(cache))
+        toks = torch.randint(0, cfg.vocab_size, (STEPS_DECODE_STEPS,
+                                                 shape.global_batch, 1),
+                             generator=g).to("cuda")
+        start = shape.seq_len - STEPS_DECODE_STEPS
+        reset_counts(kernels)
+        step_s, got = [], []
+        for i in range(STEPS_DECODE_STEPS):
+            (lg, cache), t = sync_time(torch, lambda: b.fn(
+                params, toks[i], cache, start + i))
+            step_s.append(t)
+            got.append(lg)
+        counts = read_counts(kernels)
+        equal = True
+        for i in range(STEPS_DECODE_STEPS):
+            lg, cache_b = model.decode_step(params, toks[i], cache_b,
+                                            start + i)
+            equal &= bool(torch.equal(lg, got[i]))
+        equal &= _tensors_equal(torch, cache, cache_b)
+        rows["decode"] = {
+            "shape": STEPS_GEMMA["decode"],
+            "steps": STEPS_DECODE_STEPS, "first_index": start,
+            "bit_equal": equal, "ms_per_step": [t * 1e3 for t in step_s],
+            "ms_per_step_median": float(np.median(step_s)) * 1e3,
+            "bound_ms": (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            "bound_from": "weights and cache read once at 3.35 TB/s",
+            "finite": all(bool(torch.isfinite(x).all()) for x in got),
+            "launches": counts, "launches_expected": 0}
+        del cache, cache_b, got, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- train ----
+        shape = ShapeConfig(*STEPS_GEMMA["train"])
+        tcfg = TrainConfig()
+        b = build_step(cfg, shape, mesh, tcfg=tcfg)
+        opt, _ = build_optimizer(model, tcfg, params=params)
+        state = stack_replicas(opt.init(params), 1)
+        params = stack_replicas(params, 1)
+        k = tcfg.local_steps_in_step
+        micro = shape.global_batch // k
+        batch = _client_round_batch(cfg, 1, k, micro, shape.seq_len, seed=0,
+                                    device="cuda")
+        au = torch.ones(1, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        (pm, sm, mm), wall = sync_time(torch, lambda: b.fn(
+            params, state, batch, au, au))
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        mesh_loss = float(mm["loss"])
+        pm = tree_map(lambda t: t.cpu(), pm)
+        sm = tree_map(lambda t: t.cpu(), sm)
+        host = make_host_round(model, HierarchyConfig(
+            num_edge_servers=1, clients_per_es=1, kappa0=k, kappa1=1), tcfg,
+            num_clients=1, global_sync=False)
+        ph, sh, mh = host.fn(params, state, batch, au, au)
+        equal = (_tensors_equal(torch, pm, tree_map(lambda t: t.cpu(), ph))
+                 and _tensors_equal(torch, sm,
+                                    tree_map(lambda t: t.cpu(), sh))
+                 and mesh_loss == float(mh["loss"]))
+        cost = analytic.train_cost(cfg, shape, {"data": 1, "model": 1},
+                                   tcfg=tcfg, attn_impl="flash")
+        rows["train"] = {
+            "shape": STEPS_GEMMA["train"], "clients": 1, "local_steps": k,
+            "micro": micro, "bit_equal_to_host_round": equal,
+            "round_s": wall, "loss": mesh_loss,
+            "tokens_per_s": k * micro * shape.seq_len / wall,
+            "bound_s": cost.flops / roofline.PEAK_FLOPS,
+            "bound_from": "analytic train FLOPs (flash, remat full: 4x the "
+                          "forward) / 989 TFLOP/s",
+            "peak_GB": peak / 1e9,
+            "peak_reckoned_GB": 3 * param_bytes / 1e9,
+            "peak_reckoned_from": "params, their gradients and the new "
+                                  "params (bf16), before activations and "
+                                  "the edge step's float32 copy of a leaf",
+            "finite": math.isfinite(mesh_loss),
+            "launches": counts,
+            "launches_expected": k * n_attn * 2}
+        del params, state, pm, sm, ph, sh
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "steps_gemma", "backend": backend, "world_size": 1,
+          "mesh": {"data": 1, "model": 1},
+          "config": {"arch": cfg.name, "num_layers": cfg.num_layers,
+                     "params": n_params, "dtype": cfg.dtype}, **rows})
+    assert backend == "nccl"
+    for kind, row in rows.items():
+        assert row.get("bit_equal", row.get("bit_equal_to_host_round")), (
+            kind, row)
+        assert row["finite"], (kind, row)
+        assert row["launches"]["flash_attention"] == row[
+            "launches_expected"], (kind, row)
+    return {kind: row["launches"] for kind, row in rows.items()}
+
+
+def _tp_cases():
+    from repro_torch.configs.registry import get_arch
+    return {"reduced_float32": get_arch("gemma3-12b").reduced(),
+            "gemma3_2layers_bf16": _gemma_cut(TP_GEMMA_LAYERS)}
+
+
+def _tp_inputs(torch, cfg, device):
+    """The tp_gemma case's parameters (seed 0 on the card: the same in
+    every process), prefill batch and round inputs."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.phsfl import build_optimizer
+    from repro_torch.launch.train import _client_round_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.prng import make_generator
+    model = build_model(cfg)
+    params = model.init(make_generator(0, device))
+    pre = ShapeConfig(*TP_PREFILL)
+    g = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
+                        generator=g).to(device)
+    tr = ShapeConfig(*TP_TRAIN)
+    tcfg = TrainConfig(learning_rate=TP_LR[cfg.dtype])
+    k = tcfg.local_steps_in_step
+    C = len(TP_ALPHA_U)
+    batch = _client_round_batch(cfg, C, k, tr.global_batch // (C * k),
+                                tr.seq_len, seed=0, device=device)
+    opt, _ = build_optimizer(model, tcfg, params=params)
+    return model, params, {"tokens": tok, "labels": tok}, batch, opt, tcfg
+
+
+def phase_tp_gemma_prepare(torch, np):
+    """tp_gemma's references at model 1 on the card, before the spawn:
+    each case's last-position prefill logits and the host round of its
+    two clients; the round's expected updates (after - before, float32)
+    are cut for each of the four ranks of the (data 2, model 2) mesh
+    (rank = 2 data + model) and written, with the ulp of each block's
+    largest value after the round, to a git-ignored directory the ranks
+    read (the embedding's rows that the batch touches, every other leaf
+    whole)."""
+    import gc
+    from repro_torch.configs.base import HierarchyConfig
+    from repro_torch.core.phsfl import make_host_round, stack_replicas
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import params_specs, shard_params
+    from repro_torch.utils.tree import path_leaves, tree_map
+    out_dir = ROOT / "build" / "tp_gemma"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    refs = {"dir": str(out_dir), "prefill": {}, "host_round_s": {},
+            "host_peak_GB": {}}
+    mesh = make_mesh((2, 2), ("data", "model"), abstract=True)
+    for case, cfg in _tp_cases().items():
+        model, params, pbatch, batch, opt, tcfg = _tp_inputs(torch, cfg,
+                                                             "cuda")
+        lg = model.logits(params, model.apply(params, pbatch)[0][:, -1:])
+        refs["prefill"][case] = lg.float().cpu().numpy()
+        del lg
+        C = len(TP_ALPHA_U)
+        host = make_host_round(model, HierarchyConfig(
+            num_edge_servers=1, clients_per_es=C,
+            kappa0=tcfg.local_steps_in_step, kappa1=1), tcfg,
+            num_clients=C, global_sync=False)
+        au = torch.tensor(TP_ALPHA_U, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        (ph, sh, mh), wall = sync_time(torch, lambda: host.fn(
+            stack_replicas(params, C), stack_replicas(opt.init(params), C),
+            batch, au, au))
+        refs["host_round_s"][case] = wall
+        refs["host_peak_GB"][case] = torch.cuda.max_memory_allocated() / 1e9
+        refs.setdefault("loss", {})[case] = float(mh["loss"])
+        spec = params_specs(params, model.axes(), mesh, mode="tp")
+        touched = torch.unique(batch["tokens"]).cpu()
+        for rank in range(4):
+            coord = {"data": rank // 2, "model": rank % 2}
+            c = coord["data"]
+            mine = shard_params(tree_map(lambda x: x[c], ph), spec,
+                                mesh, coord)
+            before = dict(path_leaves(shard_params(params, spec, mesh,
+                                                   coord)))
+            flat = {}
+            for p, t in path_leaves(mine):
+                flat[f"{p}@ulp"] = _ulp(torch, t)
+                b0 = before[p]
+                if p == "embed/table":
+                    vl = t.shape[0]
+                    lo = coord["model"] * vl
+                    idx = touched[(touched >= lo) & (touched < lo + vl)]
+                    flat["embed_rows_idx"] = (idx - lo).numpy()
+                    rows = (idx - lo).to(t.device)
+                    t, b0 = t[rows], b0[rows]
+                flat[p] = (t.float() - b0.float()).cpu().numpy()
+            np.savez(out_dir / f"{case}_rank{rank}.npz", **flat)
+        del params, ph, sh, mh, host, batch, pbatch, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _ulp(torch, t) -> float:
+    """One unit in the last place of ``t``'s largest magnitude, in its
+    dtype."""
+    import math
+    x = float(t.float().abs().max())
+    return torch.finfo(t.dtype).eps * 2.0 ** math.floor(math.log2(x)) \
+        if x > 0 else 0.0
+
+
+def _timed_all_reduce(torch, dist, group):
+    """Wrap ``dist.all_reduce``: the seconds (synchronised) and bytes of
+    its calls on ``group``; returns (traffic, restore)."""
+    reduce = dist.all_reduce
+    traffic = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+    def timed(t, *a, **k):
+        if k.get("group") is not group:
+            return reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(t, *a, **k)
+        torch.cuda.synchronize()
+        traffic["seconds"] += time.perf_counter() - t0
+        traffic["calls"] += 1
+        traffic["bytes"] += t.numel() * t.element_size()
+        return out
+
+    dist.all_reduce = timed
+
+    def restore():
+        dist.all_reduce = reduce
+
+    return traffic, restore
+
+
+def _tp_gemma_rank(rank, dev, refs):
+    """One rank of tp_gemma: the (data 2, model 2) mesh over
+    reference_mesh's four gloo ranks; each case's prefill step and train
+    round on this rank's block, against the references at model 1
+    (``phase_tp_gemma_prepare``): the prefill's logits gathered by their
+    spec, the round's blocks against the host round's.  Returns the
+    errors, the K2 launches, the seconds and bytes of the "model" group's
+    ``all_reduce`` calls and the peak."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_step, rank_args
+    from repro_torch.sharding.rules import (gather_params, mesh_coordinate,
+                                            params_specs, shard_params)
+    from repro_torch.utils.tree import path_leaves, tree_map
+    mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
+    coord = mesh_coordinate(mesh)
+    assert coord == {"data": rank // 2, "model": rank % 2}, coord
+    out = {"coord": coord, "all_gather_cuda": None}
+    for case, cfg in _tp_cases().items():
+        tol = TP_TOL[cfg.dtype]
+        model, params, pbatch, batch, opt, tcfg = _tp_inputs(torch, cfg, dev)
+        row = {}
+        # ---- prefill (fsdp_tp: the embed dims gathered over "data") ----
+        b = build_step(cfg, ShapeConfig(*TP_PREFILL), mesh)
+        args = rank_args(b, (params, pbatch), mesh)
+        traffic, restore = _timed_all_reduce(torch, dist,
+                                              mesh.get_group("model"))
+        fa.launches = 0
+        try:
+            lg, wall = sync_time(torch, lambda: b.fn(*args))
+        finally:
+            restore()
+        row["prefill_s"] = wall
+        row["prefill_launches"] = fa.launches
+        row["prefill_model_all_reduce"] = dict(traffic)
+        whole = gather_params({"x": lg}, {"x": ("data", None, "model")},
+                              mesh)["x"]
+        want = refs["prefill"][case]
+        got = whole.float().cpu().numpy()
+        row["prefill_max_abs_err"] = float(np.abs(got - want).max())
+        row["prefill_scale"] = max(1.0, float(np.abs(want).max()))
+        row["prefill_ok"] = row["prefill_max_abs_err"] <= tol * row[
+            "prefill_scale"]
+        del args, lg, whole
+        # ---- the train round ----
+        b = build_step(cfg, ShapeConfig(*TP_TRAIN), mesh, tcfg=tcfg)
+        spec = params_specs(params, model.axes(), mesh, mode="tp")
+        local = shard_params(params, spec, mesh)
+        init_local = tree_map(torch.clone, local)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        p1 = tree_map(lambda t: t.unsqueeze(0), local)
+        s1 = tree_map(lambda t: t.unsqueeze(0), opt.init(local))
+        rest = rank_args(b, (None, None, batch,
+                             np.asarray(TP_ALPHA_U, np.float32),
+                             np.asarray(TP_ALPHA_U, np.float32)), mesh)[2:]
+        traffic, restore = _timed_all_reduce(torch, dist,
+                                              mesh.get_group("model"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        fa.launches = 0
+        try:
+            (pm, sm, mm), wall = sync_time(torch, lambda: b.fn(p1, s1,
+                                                               *rest))
+        finally:
+            restore()
+        row["round_s"] = wall
+        row["round_peak_GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        row["round_launches"] = fa.launches
+        row["round_model_all_reduce"] = dict(traffic)
+        row["loss"] = float(mm["loss"])
+        ref = np.load(f"{refs['dir']}/{case}_rank{rank}.npz")
+        before = dict(path_leaves(init_local))
+        worst, head_frozen, untouched_equal = 0.0, True, True
+        margins, update_max, leaves = [], 0.0, {}
+        writes = tcfg.local_steps_in_step + 1
+        for p, t in path_leaves(pm):
+            t = t[0]
+            if p == "lm_head/w":
+                head_frozen = bool(torch.equal(t, before[p]))
+                continue
+            b0 = before[p]
+            if p == "embed/table":
+                idx = torch.from_numpy(ref["embed_rows_idx"]).to(dev)
+                keep = torch.ones(t.shape[0], dtype=torch.bool, device=dev)
+                keep[idx] = False
+                untouched_equal = bool(torch.equal(t[keep], b0[keep]))
+                t, b0 = t[idx], b0[idx]
+            got = (t.float() - b0.float()).cpu().numpy()
+            want = ref[p]
+            scale = float(np.abs(want).max())
+            ulp = float(ref[f"{p}@ulp"])
+            limit = tol * scale + writes * ulp
+            err = float(np.abs(got - want).max())
+            leaves[p] = {"update_ulps": scale / ulp if ulp else 0.0,
+                         "err_over_limit": err / limit if limit else (
+                             math.inf if err else 0.0)}
+            if limit == 0:                      # a leaf of zeros, unmoved
+                worst = max(worst, leaves[p]["err_over_limit"])
+                continue
+            worst = max(worst, err / limit)
+            margins.append(scale / limit)
+            update_max = max(update_max, scale)
+        row["round_err_over_limit"] = worst
+        row["round_update_max"] = update_max
+        row["round_margin_median"] = float(np.median(margins))
+        row["round_margin_min"] = min(margins)
+        row["round_worst_leaves"] = sorted(
+            leaves.items(), key=lambda kv: -kv[1]["err_over_limit"])[:3]
+        row["round_unmoved"] = sorted(p for p, r in leaves.items()
+                                      if r["update_ulps"] == 0)
+        row["round_ok"] = (worst <= 1.0 and head_frozen and untouched_equal
+                           and row["round_margin_median"] >= TP_MARGIN
+                           and abs(row["loss"] - refs["loss"][case])
+                           <= tol * max(1.0, abs(refs["loss"][case])))
+        row["head_frozen"], row["embed_untouched_rows_equal"] = (
+            head_frozen, untouched_equal)
+        out[case] = row
+        del pm, sm, p1, s1, local, init_local, rest
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_gemma(torch, np, refs, ranks):
+    """tp_gemma's report: each rank's errors against model 1, the "model"
+    group's ``all_reduce`` seconds and bytes, K2's launches (each case:
+    the prefill's one a layer, the round's 2 local steps x layers x 2
+    under remat)."""
+    import shutil
+    rows = {}
+    for case, cfg in _tp_cases().items():
+        n = attention_layers(cfg)
+        rs = [r["tp"][case] for r in ranks]
+        rows[case] = {
+            "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "vocab": cfg.padded_vocab,
+            "tol": TP_TOL[cfg.dtype],
+            "prefill_max_abs_err": [r["prefill_max_abs_err"] for r in rs],
+            "prefill_scale": rs[0]["prefill_scale"],
+            "lr": TP_LR[cfg.dtype],
+            "round_err_over_limit": [r["round_err_over_limit"]
+                                     for r in rs],
+            "round_update_max": [r["round_update_max"] for r in rs],
+            "round_margin_median": [r["round_margin_median"] for r in rs],
+            "round_margin_min": [r["round_margin_min"] for r in rs],
+            "round_worst_leaves": rs[0]["round_worst_leaves"],
+            "round_unmoved": rs[0]["round_unmoved"],
+            "head_frozen": [r["head_frozen"] for r in rs],
+            "embed_untouched_rows_equal": [
+                r["embed_untouched_rows_equal"] for r in rs],
+            "loss": [r["loss"] for r in rs],
+            "loss_model1": refs["loss"][case],
+            "prefill_s": [r["prefill_s"] for r in rs],
+            "round_s": [r["round_s"] for r in rs],
+            "round_model1_host_s": refs["host_round_s"][case],
+            "round_peak_GB": [r["round_peak_GB"] for r in rs],
+            "host_round_peak_GB": refs["host_peak_GB"][case],
+            "prefill_model_all_reduce": [r["prefill_model_all_reduce"]
+                                         for r in rs],
+            "round_model_all_reduce": [r["round_model_all_reduce"]
+                                       for r in rs],
+            "launches": {"prefill": [r["prefill_launches"] for r in rs],
+                         "round": [r["round_launches"] for r in rs]},
+            "launches_expected": {"prefill": n, "round": 2 * 2 * n},
+            "ok": all(r["prefill_ok"] and r["round_ok"] for r in rs)}
+    emit({"phase": "tp_gemma", "mesh": {"data": 2, "model": 2},
+          "backend": "gloo", "prefill": TP_PREFILL, "train": TP_TRAIN,
+          "alpha_u": TP_ALPHA_U, "cases": rows})
+    shutil.rmtree(refs["dir"], ignore_errors=True)
+    for case, row in rows.items():
+        assert row["ok"], (case, row)
+        assert row["launches"]["prefill"] == [
+            row["launches_expected"]["prefill"]] * 4, row["launches"]
+        assert row["launches"]["round"] == [
+            row["launches_expected"]["round"]] * 4, row["launches"]
+    return {case: row["launches"] for case, row in rows.items()}
+
+
+def phase_dryrun(torch):
+    """The port's dry run on this machine: gemma3-12b whole x the four
+    shapes x the (16, 16) mesh, over a fake group of 256 ranks, on fake
+    CUDA tensors (K2 through its fake registration; nothing launched).
+    Each record's three terms, the traced FLOPs against the analytic
+    ones, the collective bytes a rank by kind and mesh dim against the
+    analytic coll_tp / coll_edge, the traced peak and the trace's
+    seconds."""
+    from repro_torch.configs.registry import supports_shape
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.launch import dryrun
+    out_dir = ROOT / "build" / "dryrun_torch"
+    rows = {}
+    before = fa.launches
+    for name in SHAPES:
+        if not supports_shape(DRYRUN_ARCH, name):
+            continue
+        rec = dryrun.run_one(DRYRUN_ARCH, name, "single",
+                             out_dir=str(out_dir), verbose=False)
+        c = rec["collective_detail"]
+        rows[name] = {
+            "trace_device": rec["trace_device"],
+            "compute_s": rec["compute_s"], "memory_s": rec["memory_s"],
+            "collective_s": rec["collective_s"], "dominant": rec["dominant"],
+            "flops_per_chip": rec["flops_per_chip"],
+            "traced_flops_per_chip": rec["traced_flops_per_chip"],
+            "traced_over_analytic": rec["traced_flops_over_analytic"],
+            "traced_collective_bytes_by_dim": {
+                d: {k: v for k, v in r.items() if k != "counts" and v}
+                for d, r in c["by_dim"].items()},
+            "traced_collective_counts_by_dim": {
+                d: {k: v for k, v in r["counts"].items() if v}
+                for d, r in c["by_dim"].items()},
+            "analytic_coll": {k: rec["analytic_detail"].get(k) for k in
+                              ("coll_tp", "coll_edge", "coll_pod",
+                               "coll_fsdp") if k in rec["analytic_detail"]},
+            "peak_memory_GB": rec["peak_memory_bytes"] / 1e9,
+            "trace_s": rec["trace_s"]}
+    emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "mesh": "single (16, 16)",
+          "chips": 256, "records": rows,
+          "k2_launches_during_trace": fa.launches - before})
+    assert len(rows) == 4, sorted(rows)
+    assert all(r["trace_device"] == "cuda" for r in rows.values())
+    assert fa.launches == before
+    for r in rows.values():
+        assert r["traced_flops_per_chip"] > 0 and r["peak_memory_GB"] > 0
+    return rows
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4679,11 +5306,16 @@ def main() -> int:
     seamless_serving = phase_serve_seamless(torch, kernels)
     for policy, counts in phase_train_seamless(torch, kernels).items():
         train_counts[f"train_seamless_{policy}"] = counts
-    mesh_counts = {
-        "mesh_nccl": phase_mesh_nccl(torch, np, kernels),
-        "reference_mesh": phase_reference_mesh(torch, np, kernels),
-        "train_mesh_seamless": phase_train_mesh_seamless(torch, np,
-                                                         kernels)}
+    mesh_counts = {"mesh_nccl": phase_mesh_nccl(torch, np, kernels)}
+    launch_tools = {"steps_gemma": phase_steps_gemma(torch, np, kernels)}
+    tp_refs = phase_tp_gemma_prepare(torch, np)
+    mesh_counts["reference_mesh"], ranks = phase_reference_mesh(
+        torch, np, kernels, tp_refs)
+    launch_tools["tp_gemma"] = phase_tp_gemma(torch, np, tp_refs, ranks)
+    del ranks
+    mesh_counts["train_mesh_seamless"] = phase_train_mesh_seamless(
+        torch, np, kernels)
+    phase_dryrun(torch)
 
     def mesh_launches(name):
         """Each mesh phase's launches of one kernel: mesh_nccl's by run,
@@ -4732,6 +5364,10 @@ def main() -> int:
         "launches": flash_launches,
         "train_launches": train_launches("flash_attention"),
         "mesh_launches": mesh_launches("flash_attention"),
+        "launch_tools_launches": {
+            "steps_gemma": {kind: c["flash_attention"] for kind, c in
+                            launch_tools["steps_gemma"].items()},
+            "tp_gemma_per_rank": launch_tools["tp_gemma"]},
         "wireless_launches": wireless_launches("flash_attention"),
         "telemetry": telemetry("flash_attention"),
         "within_tolerance": True,

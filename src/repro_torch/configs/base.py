@@ -354,6 +354,14 @@ class WirelessConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+@dataclass(frozen=True)
 class MeshConfig:
     """The production mesh: 16 clients x 16-way tensor parallelism, or two
     pods (edge servers) of that."""

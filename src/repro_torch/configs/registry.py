@@ -21,6 +21,15 @@ ARCHS: dict[str, ModelConfig] = {
               gemma3_12b, seamless_m4t_medium, deepseek_v2_236b)
 }
 
+# archs with sub-quadratic / bounded-window sequence mixing that run
+# long_500k
+LONG_CONTEXT_OK = frozenset({
+    "xlstm-350m",
+    "recurrentgemma-2b",
+    "gemma3-12b",
+    "gemma3-27b",
+})
+
 # reference architectures the port cannot run yet, and what each lacks
 NOT_PORTED: dict[str, str] = {}
 
@@ -33,3 +42,10 @@ def get_arch(name: str) -> ModelConfig:
                        f"{NOT_PORTED[name]}; ported: {sorted(ARCHS)}")
     raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}, "
                    f"not yet ported: {sorted(NOT_PORTED)}")
+
+
+def supports_shape(arch: str, shape_name: str) -> bool:
+    """Whether (arch, shape) is a supported dry-run combination."""
+    if shape_name == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True

@@ -36,8 +36,13 @@ optimizer states, one client's step (its gradients and activations) and
 the edge step's float32 copies of one leaf.
 
 The reference lets GSPMD shard each client's replica over a "model" axis
-(tensor parallelism); the port keeps that axis at 1 and raises above it
-(ROADMAP §1).
+(tensor parallelism).  The port's mesh rounds take a "model" dim above 1
+for the dense decoders (``sharding.tensor_parallel``): each rank holds its
+block of its client's replica (``sharding.rules.shard_params``), the
+local steps reduce over the "model" group inside the layers, and the edge
+and global aggregation sum each rank's block over the "data" and "pod"
+groups as before.  Every other family raises at model > 1 (ROADMAP §1,
+slice 12).
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ from repro_torch.optim import (apply_updates, make_optimizer, masked,
                                zeros_view)
 from repro_torch.sharding.rules import (add_client_axis, as_abstract,
                                         data_axes, params_specs)
+from repro_torch.sharding.tensor_parallel import (parallel_for,
+                                                  require_tp_ported)
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -73,12 +80,13 @@ def abstract_params(model: Model, *, stacked_clients: int | None = None):
     return shapes
 
 
-def local_steps(model: Model, opt, mask, tcfg: TrainConfig):
+def local_steps(model: Model, opt, mask, tcfg: TrainConfig, par=None):
     """One client's kappa0 local SGD steps, the reference's ``_local_scan``
     as a loop, with its activation checkpointing (``tcfg.remat``; policy
     "full" is the wrapper's default, None).  Frozen leaves (mask False)
     take no gradient (a broadcast zero stands in for it) and are returned
-    as they are: their update is zero either way."""
+    as they are: their update is zero either way.  ``par``: this rank's
+    tensor-parallel block."""
     policy = None if tcfg.remat_policy == "full" else tcfg.remat_policy
 
     def run(p, s, batch_c):
@@ -88,7 +96,7 @@ def local_steps(model: Model, opt, mask, tcfg: TrainConfig):
             leaves = tree_map(lambda x, m: x.detach().requires_grad_(m),
                               p, mask)
             loss = model.loss(leaves, mb, remat=tcfg.remat,
-                              remat_policy=policy)
+                              remat_policy=policy, par=par)
             got = iter(torch.autograd.grad(
                 loss, [t for t in tree_leaves(leaves) if t.requires_grad],
                 allow_unused=True))
@@ -278,19 +286,23 @@ def _client_groups(mesh) -> list:
     return [mesh.get_group(a) for a in data_axes(mesh)]
 
 
-def _no_tensor_parallel(mesh) -> None:
-    if as_abstract(mesh).shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a 'model' mesh dim larger than 1 (tensor parallelism inside a "
-            "client) is not ported yet; see ROADMAP.md §1, the launch "
-            "tools")
+def tensor_parallel(model: Model, mesh):
+    """This rank's tensor-parallel block (``sharding.tensor_parallel.
+    Parallel``), or None when the "model" dim is 1.  Above 1 only the
+    dense decoders are ported: any other family raises
+    ``NotImplementedError`` naming ROADMAP §1, slice 12."""
+    if as_abstract(mesh).shape.get("model", 1) == 1:
+        return None
+    require_tp_ported(model.cfg)
+    return parallel_for(mesh)
 
 
 def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
                      mesh, *, global_sync: bool,
                      participation: bool = False, cut=None) -> PHSFLRound:
     """One edge round over ``mesh`` (a ``DeviceMesh`` with a "data" dim,
-    optionally "pod", and "model" of size 1), one client per rank.
+    optionally "pod", and "model"), one client per rank of the pod x data
+    dims, its replica split over the "model" dim (``tensor_parallel``).
 
     The fn takes the reference's arguments, each this rank's (1, ...)
     slice of the stacked tensors: params, opt_state, batch, alpha_u,
@@ -303,7 +315,7 @@ def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
     a participant; an all-ones mask is bit-identical to the unmasked
     round.  The loss is the mean over all clients.  ``cut`` declares the
     split boundary (a Remark-2 no-op on numerics)."""
-    _no_tensor_parallel(mesh)
+    par = tensor_parallel(model, mesh)
     num_clients = _client_ranks(mesh)
     groups = _client_groups(mesh)
     with_pod = "pod" in as_abstract(mesh).axis_names
@@ -314,7 +326,7 @@ def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
         p_prev = tree_map(lambda x: x[0], params)
         if not built:
             built.append(local_steps(model, *build_optimizer(
-                model, tcfg, cut, params=p_prev), tcfg))
+                model, tcfg, cut, params=p_prev), tcfg, par))
         p, s, losses = built[0](p_prev, tree_map(lambda x: x[0], opt_state),
                                 {k: v[0] for k, v in batch.items()})
         if mask is None:
@@ -388,8 +400,10 @@ def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
     then the masked update.  ``batch`` leaves are (clients on this rank,
     ...).  ``sync_clients(params, do_global)`` replaces each client
     block by the unweighted mean over its pod's clients, or over all
-    clients."""
-    _no_tensor_parallel(mesh)
+    clients.  Over a "model" dim above 1 each rank holds its block of
+    every leaf (``tensor_parallel``); the body stays replicated over the
+    client dims (its FSDP layout waits for ROADMAP §1, slice 12)."""
+    par = tensor_parallel(model, mesh)
     spec = split_spec_for(model.cfg)
     client_mask = part_masks(abstract_params(model), spec)["client"]
     mine = local_clients(mesh, num_clients)
@@ -411,7 +425,7 @@ def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
             merged = tree_map(lambda c, x: x[i] if c else x, client_mask,
                               leaves)
             loss = model.loss(merged, {k: v[i] for k, v in batch.items()},
-                              remat=tcfg.remat) / num_clients
+                              remat=tcfg.remat, par=par) / num_clients
             loss.backward()
             total = total + loss.detach()
         grads = tree_map(lambda t: zeros_view(t) if t.grad is None

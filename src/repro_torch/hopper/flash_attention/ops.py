@@ -11,10 +11,14 @@ keys its rows can see, so it never holds (B, H, S, S) logits.
 
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``, head-major, so the CPU path transposes around it), a CUDA
-tensor launches the Hopper kernel (``kernel.py``) or raises.  There is no
-fallback from the kernel to the plain version.  A ``meta`` tensor (shapes
-only, no data) goes through the plain version's shapes; nothing is
-launched.  The wrapper carries the telemetry probe
+tensor launches the Hopper kernel (``kernel.py``) or raises, through the
+custom op ``repro_torch::flash_attention``, which a fake tensor
+(``FakeTensorMode``, the dry run) also takes: its fake registration gives
+the output's shape and dtype and its flop formula counts the pairs K2
+computes (the causal half, the window's band; ``hopper.dispatch``).
+There is no fallback from the kernel to the plain version.  A ``meta``
+tensor (shapes only, no data) goes through the plain version's shapes;
+nothing is launched.  The wrapper carries the telemetry probe
 (``kernel.flash_attention.*``, ``repro_torch.telemetry.kernels``).
 """
 
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.hopper.dispatch import kernel_op, takes_kernel_op
 from repro_torch.hopper.flash_attention import kernel
 from repro_torch.hopper.flash_attention.ref import attention_ref
 from repro_torch.hopper.tma import kernel_layout
@@ -54,16 +59,48 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs K2 computes at length ``s``: each query's
+    keys from the window's left edge (0 without one) to itself (the end
+    without causality)."""
+    if causal:
+        if not window or s <= window:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if not window or s <= window:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def _launch(q, k, v, causal, window, softcap):
+    return kernel.flash_attention_cuda(
+        kernel_layout(q), kernel_layout(k), kernel_layout(v),
+        causal=causal, window=window, softcap=softcap)
+
+
+def _fake(q, k, v, causal, window, softcap):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _flops(q, k, v, causal, window, softcap):
+    """2 d flops a pair for QK^T and 2 d for PV (PERF.md §6)."""
+    b, s, h, d = q
+    return 4 * d * attention_pairs(s, causal, window) * b * h
+
+
+_op = kernel_op("flash_attention", "(Tensor q, Tensor k, Tensor v, bool "
+                "causal, int window, float softcap) -> Tensor", _launch,
+                _fake, _flops)
+
+
 def _forward(q, k, v, causal, window, softcap):
+    if takes_kernel_op(q):
+        return _op(q, k, v, causal, window, softcap)
     if q.device.type in ("cpu", "meta"):
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             softcap=softcap)
         return out.transpose(1, 2).contiguous()
-    if q.device.type == "cuda":
-        return kernel.flash_attention_cuda(
-            kernel_layout(q), kernel_layout(k), kernel_layout(v),
-            causal=causal, window=window, softcap=softcap)
     raise ValueError(f"no flash attention kernel for device {q.device}")
 
 

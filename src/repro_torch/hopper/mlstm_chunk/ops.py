@@ -7,8 +7,12 @@ reference's custom VJP does (the JAX package has no backward kernel).
 
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``, in the same layout), a CUDA tensor launches the Hopper
-kernel (``kernel.py``) or raises.  There is no fallback from the kernel
-to the plain version.  A ``meta`` tensor (shapes only, no data) goes
+kernel (``kernel.py``) or raises, through the custom op
+``repro_torch::mlstm_chunk``, which a fake tensor (``FakeTensorMode``)
+also takes: its fake registration gives the output's shape and dtype and
+its flop formula counts the chunkwise form's operations at the
+reference's chunk of 128 (``hopper.dispatch``).  There is no fallback
+from the kernel to the plain version.  A ``meta`` tensor (shapes only, no data) goes
 through the plain version's shapes; nothing is launched.  The wrapper
 carries the telemetry probe (``kernel.mlstm_chunk.*``,
 ``repro_torch.telemetry.kernels``).
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.hopper.dispatch import kernel_op, takes_kernel_op
 from repro_torch.hopper.mlstm_chunk import kernel
 from repro_torch.hopper.mlstm_chunk.ref import KERNEL_CHUNK, mlstm_chunkwise
 from repro_torch.hopper.tma import kernel_layout
@@ -56,14 +61,32 @@ def _plain(q, k, v, li, lf):
     return mlstm_chunkwise(q, k, v, li, lf, chunk=KERNEL_CHUNK)[0]
 
 
+def _launch(q, k, v, li, lf):
+    # the last dimension contiguous and, in bf16, the layout K2's TMA
+    # tensor maps read (the same rule)
+    q, k, v = (kernel_layout(t) for t in (q, k, v))
+    return kernel.mlstm_chunk_cuda(q, k, v, li, lf)
+
+
+def _flops(q, k, v, li, lf):
+    """Per (b, h, chunk of l rows): 2 dh l(l+1) for the causal QK^T and
+    (S.D)V, 4 l dh^2 for QC and K^T V (PERF.md §6)."""
+    b, s, h, dh = q
+    lens = [min(KERNEL_CHUNK, s - c) for c in range(0, s, KERNEL_CHUNK)]
+    return b * h * sum(2 * dh * n * (n + 1) + 4 * n * dh * dh for n in lens)
+
+
+_op = kernel_op("mlstm_chunk", "(Tensor q, Tensor k, Tensor v, Tensor li, "
+                "Tensor lf) -> Tensor", _launch,
+                lambda q, k, v, li, lf: torch.empty(q.shape, dtype=q.dtype,
+                                                    device=q.device), _flops)
+
+
 def _forward(q, k, v, li, lf):
+    if takes_kernel_op(q):
+        return _op(q, k, v, li, lf)
     if q.device.type in ("cpu", "meta"):
         return _plain(q, k, v, li, lf)
-    if q.device.type == "cuda":
-        # the last dimension contiguous and, in bf16, the layout K2's TMA
-        # tensor maps read (the same rule)
-        q, k, v = (kernel_layout(t) for t in (q, k, v))
-        return kernel.mlstm_chunk_cuda(q, k, v, li, lf)
     raise ValueError(f"no mLSTM chunk kernel for device {q.device}")
 
 

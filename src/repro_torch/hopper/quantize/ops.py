@@ -8,9 +8,12 @@ transparent to autograd (its true derivative is 0 almost everywhere).
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor launches the Hopper kernel (``kernel.py``) or
-raises.  There is no fallback from the kernel to the plain version.  A
-``meta`` tensor (shapes only, no data) goes through the plain version's
-shapes; nothing is launched.
+raises, through the custom op ``repro_torch::quantize``, which a fake
+tensor (``FakeTensorMode``) also takes: its fake registration gives the
+output's shape and dtype and its flop formula counts 5 operations an
+element (``hopper.dispatch``).  There is no fallback from the kernel to
+the plain version.  A ``meta`` tensor (shapes only, no data) goes
+through the plain version's shapes; nothing is launched.
 
 ``quantize_rows``, the codec entry, carries the telemetry probe
 (``kernel.quantize.*``, ``repro_torch.telemetry.kernels``), as the
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.hopper.dispatch import kernel_op, takes_kernel_op
 from repro_torch.hopper.quantize import kernel
 from repro_torch.hopper.quantize.ref import quantize_dequantize_ref
 from repro_torch.telemetry.kernels import kernel_probe
@@ -48,11 +52,25 @@ def _check(x, u, scale):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _flops(x, u, scale, qmax):
+    """scale, floor, add, clip, dequantize: 5 an element (PERF.md §6)."""
+    return 5 * x[0] * x[1]
+
+
+def _launch(x, u, scale, qmax):
+    return kernel.quantize_dequantize_cuda(x, u, scale, qmax)
+
+
+_op = kernel_op("quantize", "(Tensor x, Tensor u, Tensor scale, int qmax) "
+                "-> Tensor", _launch,
+                lambda x, u, scale, qmax: torch.empty_like(x), _flops)
+
+
 def _forward(x, u, scale, qmax):
+    if takes_kernel_op(x):
+        return _op(x, u, scale, qmax)
     if x.device.type in ("cpu", "meta"):
         return quantize_dequantize_ref(x, u, scale, qmax)
-    if x.device.type == "cuda":
-        return kernel.quantize_dequantize_cuda(x, u, scale, qmax)
     raise ValueError(f"no quantize kernel for device {x.device}")
 
 

@@ -7,7 +7,11 @@ package has no backward kernel).
 
 Dispatch is by the tensors' device: a CPU tensor takes the plain version
 (``ref.py``), a CUDA tensor launches the Hopper kernel (``kernel.py``) or
-raises.  There is no fallback from the kernel to the plain version.  A
+raises, through the custom op ``repro_torch::rglru_scan``, which a fake
+tensor (``FakeTensorMode``) also takes: its fake registration gives the
+output's shape and dtype and its flop formula counts 3 operations an
+element (``hopper.dispatch``).  There is no fallback from the kernel to
+the plain version.  A
 ``meta`` tensor (shapes only, no data) goes through the plain version's
 shapes; nothing is launched.  The wrapper carries the telemetry probe
 (``kernel.rglru_scan.*``, ``repro_torch.telemetry.kernels``).
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.hopper.dispatch import kernel_op, takes_kernel_op
 from repro_torch.hopper.rglru_scan import kernel
 from repro_torch.hopper.rglru_scan.ref import rglru_scan_ref
 from repro_torch.telemetry.kernels import kernel_probe
@@ -46,13 +51,30 @@ def _check(log_a, b, h0):
                              f"{log_a.device}")
 
 
+def _launch(log_a, b, h0):
+    log_a, b, h0 = (t if t.stride(-1) == 1 else t.contiguous()
+                    for t in (log_a, b, h0))
+    return kernel.rglru_scan_cuda(log_a, b, h0)
+
+
+def _flops(log_a, b, h0):
+    """exp, multiply, add: 3 an element (PERF.md §6)."""
+    return 3 * log_a[0] * log_a[1] * log_a[2]
+
+
+_op = kernel_op("rglru_scan", "(Tensor log_a, Tensor b, Tensor h0) -> "
+                "Tensor", _launch,
+                lambda log_a, b, h0: torch.empty(log_a.shape,
+                                                 dtype=log_a.dtype,
+                                                 device=log_a.device),
+                _flops)
+
+
 def _forward(log_a, b, h0):
+    if takes_kernel_op(log_a):
+        return _op(log_a, b, h0)
     if log_a.device.type in ("cpu", "meta"):
         return rglru_scan_ref(log_a, b, h0)
-    if log_a.device.type == "cuda":
-        log_a, b, h0 = (t if t.stride(-1) == 1 else t.contiguous()
-                        for t in (log_a, b, h0))
-        return kernel.rglru_scan_cuda(log_a, b, h0)
     raise ValueError(f"no RG-LRU scan kernel for device {log_a.device}")
 
 

@@ -23,6 +23,15 @@ Path selection (``impl``):
 
 Layouts as the reference: x (B,S,D); q (B,S,H,hd), k/v (B,S,KV,hd);
 weights q (D,H,hd), k/v (D,KV,hd), o (H*hd, D).
+
+Under tensor parallelism (``par``, ``sharding.tensor_parallel``) a rank
+holds its block of each leaf: its query heads and the rows of ``o`` they
+feed, its kv heads when they divide the "model" dim, else every kv head.
+In that case it projects, before K2, only the kv heads its query heads
+read (``tensor_parallel.kv_heads_for``), so K2's grouping sees whole
+groups.  The block's input and every whole leaf it uses take the
+gradient's sum over the dim (``copy_to_tp``), and ``o``'s partial
+product is summed (``reduce_from_tp``).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.flash_attention.ops import flash_attention
 from repro_torch.models.init_utils import dense, dense_axes, norm, norm_axes
 from repro_torch.models.layers import apply_mrope, apply_norm, apply_rope
+from repro_torch.sharding import tensor_parallel as tpm
 
 DENSE_MAX_SEQ = 4096          # longest seq K2's backward recomputes whole
 Q_CHUNK = 1024                # query rows a block of the blocked recompute
@@ -100,6 +110,63 @@ def _out_proj(p, cfg: ModelConfig, o):
     """o: (B,S,H,hd) -> (B,S,D)."""
     b, s = o.shape[:2]
     return o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["o"]["w"]
+
+
+# ------------------------------------------------- tensor parallelism -----
+def _tp_block(p, cfg: ModelConfig, x, par):
+    """This rank's block as ``attn_apply`` uses it: (leaves, input, local
+    query heads, whether ``o`` is split, the kv-head pick or None).
+    Inside a split block the input and every leaf held whole (the q and k
+    norms; q when the heads do not divide; k and v when the kv heads do
+    not) take the gradient's sum over the "model" dim; with every kv head
+    held, k and v narrow to those the rank's query heads read."""
+    hl = p["q"]["w"].shape[1]
+    o_split = p["o"]["w"].shape[0] < cfg.num_heads * cfg.head_dim
+    kv_whole = p["k"]["w"].shape[1] == cfg.num_kv_heads
+    if o_split:
+        whole = {"q_norm", "k_norm"}
+        if hl == cfg.num_heads:
+            whole.add("q")
+        if kv_whole:
+            whole.update(("k", "v"))
+        p = {name: {sub: tpm.copy_to_tp(t, par) for sub, t in d.items()}
+             if name in whole else d for name, d in p.items()}
+        x = tpm.copy_to_tp(x, par)
+    pick = None
+    if kv_whole and hl < cfg.num_heads:
+        p, pick = _select_kv(p, cfg, par, hl)
+    return p, x, hl, o_split, pick
+
+
+def _select_kv(p, cfg: ModelConfig, par, hl: int):
+    """k and v leaves narrowed to the kv heads this rank's ``hl`` query
+    heads read, when the rank holds every kv head: (p, index list or
+    None).  A slice keeps K2's grouping; otherwise the list names one kv
+    head a query head, applied to k and v after projection."""
+    pick = tpm.kv_heads_for(par, cfg.num_heads, cfg.num_kv_heads, hl)
+    if isinstance(pick, list):
+        return p, pick
+    lo, hi = pick
+
+    def narrow(d):
+        out = {"w": d["w"][:, lo:hi]}
+        if "b" in d:
+            out["b"] = d["b"][lo:hi]
+        return out
+
+    return {**p, "k": narrow(p["k"]), "v": narrow(p["v"])}, None
+
+
+def _out_rows(o, cfg: ModelConfig, p, par, hl: int):
+    """This rank's rows of the attention output against its block of
+    ``o``: its own heads, or, with every query head whole and ``o``
+    split, the rows of its block (summed over the dim after)."""
+    rows = p["o"]["w"].shape[0]
+    b, s = o.shape[:2]
+    flat = o.reshape(b, s, hl * cfg.head_dim)
+    if hl * cfg.head_dim != rows:
+        flat = flat[..., par.tp_rank * rows:(par.tp_rank + 1) * rows]
+    return tpm.reduce_from_tp(flat @ p["o"]["w"], par)
 
 
 # ---------------------------------------------------------- core maths -----
@@ -187,19 +254,25 @@ def _rotate(q, k, cfg: ModelConfig, theta: float, positions, positions3):
 def attn_apply(p, cfg: ModelConfig, x, *, window: int = 0,
                rope_theta: float = 10000.0, softcap: float = 0.0,
                positions=None, positions3=None, causal: bool = True,
-               kv_override=None, impl: str = "auto"):
+               kv_override=None, impl: str = "auto", par=None):
     """Full-sequence attention sublayer: proj -> rope (M-RoPE with
     ``positions3``) -> attn -> out proj.
 
     kv_override: (k, v) from another sequence (cross-attention, from
     ``cross_kv``): only q is projected and rotated, and attention is the
-    dense path (module docstring)."""
+    dense path (module docstring).  ``par``: this rank's tensor-parallel
+    block (module docstring)."""
     b, s, _ = x.shape
+    hl, o_split, pick = cfg.num_heads, False, None
+    if par is not None and par.tp:
+        p, x, hl, o_split, pick = _tp_block(p, cfg, x, par)
     if kv_override is not None:
         q = _project(p, cfg, x, "q")
         k, v = kv_override
     else:
         q, k, v = _project_qkv(p, cfg, x)
+        if pick is not None:
+            k, v = k[:, :, pick], v[:, :, pick]
     if rope_theta or positions3 is not None:
         pos = positions if positions is not None \
             else torch.arange(s, device=x.device)[None].expand(b, s)
@@ -213,6 +286,8 @@ def attn_apply(p, cfg: ModelConfig, x, *, window: int = 0,
     else:
         out = dense_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap)
+    if o_split:
+        return _out_rows(out, cfg, p, par, hl)
     return _out_proj(p, cfg, out)
 
 
@@ -244,7 +319,8 @@ def cache_axes() -> dict:
 
 
 def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
-                  rope_theta: float, softcap: float = 0.0, positions3=None):
+                  rope_theta: float, softcap: float = 0.0, positions3=None,
+                  par=None):
     """One-token decode: write this token's k/v into the cache, attend over
     the valid slots.
 
@@ -254,8 +330,22 @@ def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
     cache in place (the reference returns a new one; here the update saves
     a copy of every layer's cache per token) and returns (out (B,1,D),
     cache).
+
+    ``par``: heads: the rank projects its query heads; its cache holds
+    its kv heads, or every kv head when they do not divide the "model"
+    dim (then it projects and writes all of them, keeping the replicated
+    cache whole, and attends with those its query heads read).  Length
+    (batch 1, ``par.seq_size`` > 1): slot ``s`` of the whole cache lies in
+    slice ``s // Ls``; only its owner writes this token there, each rank
+    attends over its slots (a sliding window's ring masked on absolute
+    positions, so a window may span slices), and the partial softmax
+    states (max, sum, weighted values; float32) are combined by
+    ``all_reduce`` over the client dims.
     """
     b = x.shape[0]
+    tp = par is not None and par.tp
+    hl = p["q"]["w"].shape[1] if tp else cfg.num_heads
+    o_split = tp and p["o"]["w"].shape[0] < cfg.num_heads * cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x)
     if rope_theta or positions3 is not None:
         pos = torch.full((b, 1), index, dtype=torch.int32, device=x.device)
@@ -263,27 +353,52 @@ def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
 
     ck, cv = cache["k"], cache["v"]
     length = ck.shape[1]
-    slot = index % length if window else min(index, length - 1)
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
+    whole_len = length
+    if par is not None and par.seq_size > 1:
+        whole_len = min(window, par.cache_len) if window else par.cache_len
+    split = length < whole_len
+    first = par.seq_rank * length if split else 0
+    slot = index % whole_len if window else min(index, whole_len - 1)
+    if first <= slot < first + length:
+        ck[:, slot - first] = k[:, 0].to(ck.dtype)
+        cv[:, slot - first] = v[:, 0].to(cv.dtype)
 
-    slots = torch.arange(length, device=x.device)
+    slots = torch.arange(first, first + length, device=x.device)
     if window:
         # ring buffer: slot s holds position index - ((slot - s) mod length)
-        kpos = index - torch.remainder(slot - slots, length)
+        kpos = index - torch.remainder(slot - slots, whole_len)
         valid = ((kpos >= 0) & (kpos >= index - window + 1)) | (slots == slot)
     else:
         valid = slots <= index
     kv_valid = valid[None].expand(b, length)
 
-    qg = _expand_gqa(q, cfg.num_kv_heads)                 # (B,1,KV,G,hd)
+    keys, values = ck, cv
+    if tp and ck.shape[2] == cfg.num_kv_heads and hl < cfg.num_heads:
+        pick = tpm.kv_heads_for(par, cfg.num_heads, cfg.num_kv_heads, hl)
+        sel = list(range(*pick)) if isinstance(pick, tuple) else pick
+        keys, values = ck[:, :, sel], cv[:, :, sel]
+    qg = _expand_gqa(q, keys.shape[2])                    # (B,1,KV,G,hd)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     logits = torch.einsum("bqngd,bknd->bngqk",
-                          qg.to(torch.float32) * scale, ck.to(torch.float32))
+                          qg.to(torch.float32) * scale,
+                          keys.to(torch.float32))
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     logits = logits + _bias(kv_valid)[:, None, None, None, :]
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bngqk,bknd->bqngd", probs, cv.to(torch.float32))
-    out = out.reshape(b, 1, cfg.num_heads, cfg.head_dim).to(x.dtype)
+    if split:
+        m = logits.amax(dim=-1, keepdim=True)
+        for g in par.seq_groups:
+            m = tpm.all_reduce_max(m, g)
+        e = torch.exp(logits - m)
+        acc = torch.einsum("bngqk,bknd->bngqd", e, values.to(torch.float32))
+        state = tpm.all_reduce_sum(torch.cat([acc, e.sum(-1, keepdim=True)],
+                                             dim=-1), par.seq_groups)
+        out = (state[..., :-1] / state[..., -1:]).permute(0, 3, 1, 2, 4)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bngqk,bknd->bqngd", probs,
+                           values.to(torch.float32))
+    out = out.reshape(b, 1, hl, cfg.head_dim).to(x.dtype)
+    if o_split:
+        return _out_rows(out, cfg, p, par, hl), cache
     return _out_proj(p, cfg, out), cache

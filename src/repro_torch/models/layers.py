@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.init_utils import dense
+from repro_torch.sharding.tensor_parallel import copy_to_tp, reduce_from_tp
 
 
 # ---------------------------------------------------------------- norms ----
@@ -118,7 +119,17 @@ def mlp_axes() -> dict:
             "down": dense_axes(("mlp", "embed"))}
 
 
-def mlp_apply(p, x, act_name: str):
+def mlp_apply(p, x, act_name: str, *, par=None, d_ff: int | None = None):
+    """The gated MLP.  Under tensor parallelism (``par``) with ``gate`` /
+    ``up`` holding this rank's columns of the ``d_ff`` width (narrower
+    than ``d_ff``), the input takes the gradient's sum over the "model"
+    dim and ``down``'s partial product is summed over it; a width that
+    does not divide the dim is held whole and computed whole."""
     act = activation(act_name)
+    split = par is not None and par.tp and p["gate"]["w"].shape[1] < d_ff
+    if split:
+        x = copy_to_tp(x, par)
     h = act(x @ p["gate"]["w"]) * (x @ p["up"]["w"])
+    if split:
+        return reduce_from_tp(h @ p["down"]["w"], par)
     return h @ p["down"]["w"]

@@ -20,6 +20,9 @@ repeats bit for bit.  Casts follow the reference: the router in
 float32, top-k weights renormalised with a 1e-9 clamp, the weights cast
 to the expert output's dtype before the product, the combine in that
 dtype, and the Switch auxiliary loss in float32.
+
+Traced on fake tensors (the dry run: shapes, no data) the group sizes
+cannot be read: the segments then take an even split of the pairs.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.hopper.dispatch import is_fake
 from repro_torch.models.init_utils import dense, dense_axes, truncated_normal
 from repro_torch.models.layers import activation
 
@@ -84,7 +88,10 @@ def route(p, cfg: ModelConfig, flat):
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, moe.top_k, dim=-1)         # (N, K)
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-    counts = torch.bincount(top_e.reshape(-1), minlength=moe.num_experts)
+    flat_e = top_e.reshape(-1)
+    counts = torch.zeros(moe.num_experts, dtype=torch.int64,
+                         device=top_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     tokens_per_expert = counts.to(torch.float32) / (n * moe.top_k)
     aux = moe.num_experts * (tokens_per_expert * probs.mean(dim=0)).sum()
     return top_w, top_e, counts, aux
@@ -106,8 +113,13 @@ def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None):
     # backward scatters unique indices and sums the K copies of a token in
     # a fixed order (a gather of repeated rows accumulates in thread order)
     xs = flat.repeat_interleave(moe.top_k, 0)[order]            # (N*K, D)
-    sizes = counts.tolist()
-    group_size_reads += 1
+    if is_fake(counts):
+        # tracing without data (the dry run): an even split of the pairs
+        q, r = divmod(flat_e.numel(), moe.num_experts)
+        sizes = [q + (e < r) for e in range(moe.num_experts)]
+    else:
+        sizes = counts.tolist()
+        group_size_reads += 1
 
     # ---- grouped matmuls, one expert's segment at a time ----
     segs, start = [], 0

@@ -35,14 +35,20 @@ def build_model(cfg: ModelConfig) -> Model:
     def axes():
         return mod.axes(cfg)
 
-    def apply(params, batch, *, impl="auto", remat=False, remat_policy=None):
-        return mod.apply(params, cfg, batch, impl=impl, remat=remat,
-                         remat_policy=remat_policy)
+    def _par(par):
+        """The tensor-parallel block reaches the decoders only."""
+        return {} if par is None else {"par": par}
 
-    def loss(params, batch, *, impl="auto", remat=False, remat_policy=None):
+    def apply(params, batch, *, impl="auto", remat=False, remat_policy=None,
+              par=None):
+        return mod.apply(params, cfg, batch, impl=impl, remat=remat,
+                         remat_policy=remat_policy, **_par(par))
+
+    def loss(params, batch, *, impl="auto", remat=False, remat_policy=None,
+             par=None):
         hidden, aux = mod.apply(params, cfg, batch, impl=impl, remat=remat,
-                                remat_policy=remat_policy)
-        ce = tf_mod.lm_loss(params, cfg, hidden, batch["labels"])
+                                remat_policy=remat_policy, **_par(par))
+        ce = tf_mod.lm_loss(params, cfg, hidden, batch["labels"], par=par)
         if cfg.moe is not None:
             ce = ce + cfg.moe.router_aux_loss * aux
         return ce
@@ -52,12 +58,12 @@ def build_model(cfg: ModelConfig) -> Model:
                               device=device)
 
     def decode_step(params, token, cache, index, *, positions3=None,
-                    return_hidden=False):
+                    return_hidden=False, par=None):
         return mod.decode_step(params, cfg, token, cache, index,
                                positions3=positions3,
-                               return_hidden=return_hidden)
+                               return_hidden=return_hidden, **_par(par))
 
-    def logits(params, hidden):
-        return tf_mod.logits_from_hidden(params, cfg, hidden)
+    def logits(params, hidden, par=None):
+        return tf_mod.logits_from_hidden(params, cfg, hidden, par)
 
     return Model(cfg, init, axes, apply, loss, init_cache, decode_step, logits)

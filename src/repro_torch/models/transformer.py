@@ -20,6 +20,12 @@ Activation checkpointing (``remat``) has the reference's granularity:
 one checkpoint per repeat of a scan stage (a whole pattern period) and
 one per lead or tail layer (``remat_wrapper``); ``lm_loss`` keeps its
 own per-chunk recompute.
+
+Tensor parallelism (``par``, ``sharding.tensor_parallel``; the dense
+decoders): each rank holds its block of every leaf; the embedding and
+the head are split by vocabulary (the embed scale applies after the
+reduce; the logits stay split; the loss's log-sum-exp is reduced over
+the "model" dim), attention and the MLP by heads and width.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.models.init_utils import (dense, dense_axes, embedding,
                                            stack_axes)
 from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_axes,
                                        mlp_init, softcap)
+from repro_torch.sharding import tensor_parallel as tpm
 from repro_torch.utils.tree import tree_map
 
 LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
@@ -191,15 +198,16 @@ def layer_axes(cfg: ModelConfig, layer_id: int) -> dict:
 
 
 # -------------------------------------------------------- layer apply ------
-def _ffn(p, cfg: ModelConfig, h):
+def _ffn(p, cfg: ModelConfig, h, par=None):
     """The layer's FFN: (y, MoE aux loss, or None for a dense MLP)."""
     if "moe" in p:
         return moe_mod.moe_apply(p["moe"], cfg, h)
-    return mlp_apply(p["mlp"], h, cfg.act), None
+    d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
+    return mlp_apply(p["mlp"], h, cfg.act, par=par, d_ff=d_ff), None
 
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
-                positions3=None, impl: str = "auto"):
+                positions3=None, impl: str = "auto", par=None):
     """Full-sequence layer: pre-norm attention, MLA or RG-LRU block, then
     the MLP or MoE FFN, both residual; or a pre-norm xLSTM block,
     residual.  Returns (x, MoE aux loss or None).  impl "auto" runs the
@@ -220,13 +228,13 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
             p["attn"], cfg, h, window=_window(cfg, kind),
             rope_theta=_rope_theta_for(cfg, kind),
             softcap=cfg.attn_logit_softcap, positions=positions,
-            positions3=positions3, impl=impl)
-    y, aux = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm))
+            positions3=positions3, impl=impl, par=par)
+    y, aux = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm), par)
     return x + y, aux
 
 
 def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int, *,
-                 positions3=None):
+                 positions3=None, par=None):
     """One-token decode through a layer, writing ``cache`` in place.
     Returns (x, cache)."""
     h = apply_norm(p["ln1"], x, cfg.norm)
@@ -244,9 +252,9 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int, *,
         y, cache = attn_mod.decode_attend(
             p["attn"], cfg, h, cache, index, window=_window(cfg, kind),
             rope_theta=_rope_theta_for(cfg, kind),
-            softcap=cfg.attn_logit_softcap, positions3=positions3)
+            softcap=cfg.attn_logit_softcap, positions3=positions3, par=par)
     x = x + y
-    y, _ = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm))
+    y, _ = _ffn(p, cfg, apply_norm(p["ln2"], x, cfg.norm), par)
     return x + y, cache
 
 
@@ -310,11 +318,16 @@ def axes(cfg: ModelConfig) -> dict:
     return ax
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None):
+def embed_tokens(params, cfg: ModelConfig, tokens, patch_embeds=None,
+                 par=None):
     # F.embedding, not table[tokens]: the indexing's backward (index_put_
     # with accumulate) sums repeated tokens in a thread-dependent order on
     # the CPU, so a resumed run would not repeat the uninterrupted one
-    x = F.embedding(tokens, params["embed"]["table"])
+    table = params["embed"]["table"]
+    if par is not None and par.tp and table.shape[0] < cfg.padded_vocab:
+        x = tpm.vocab_parallel_embedding(tokens, table, par)
+    else:
+        x = F.embedding(tokens, table)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to x's dtype before the product, as the
         # reference does (62.0, not 61.97, in bfloat16 at d_model 3840)
@@ -338,7 +351,7 @@ def _stage_layers(cfg: ModelConfig, st: Stage, sp):
 
 
 def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
-          remat: bool = False, remat_policy: str | None = None):
+          remat: bool = False, remat_policy: str | None = None, par=None):
     """Full-sequence forward to final hidden states (B,S,D).
 
     batch: {"tokens": (B,S) integer tensor, and for the VLM optionally
@@ -346,8 +359,10 @@ def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
     aux) with aux the MoE auxiliary loss summed over the MoE layers in
     layer order (float32; 0 without them).  ``remat`` checkpoints each
     scan-stage period and each unscanned layer (``remat_wrapper``).
+    ``par``: this rank's tensor-parallel block (module docstring).
     """
-    x = embed_tokens(params, cfg, batch["tokens"], batch.get("patch_embeds"))
+    x = embed_tokens(params, cfg, batch["tokens"], batch.get("patch_embeds"),
+                     par=par)
     positions3 = batch.get("positions3")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     maybe_remat = remat_wrapper(remat, remat_policy)
@@ -357,7 +372,7 @@ def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
         auxs = []
         for p, kind in zip(ps, kinds):
             x, a = apply_layer(p, cfg, kind, x, positions3=positions3,
-                               impl=impl)
+                               impl=impl, par=par)
             auxs.append(a)
         return x, auxs
 
@@ -382,31 +397,48 @@ def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
     return x, aux
 
 
-def logits_from_hidden(params, cfg: ModelConfig, hidden):
+def _head_split(params, cfg: ModelConfig, par) -> bool:
+    return (par is not None and par.tp
+            and params["lm_head"]["w"].shape[1] < cfg.padded_vocab)
+
+
+def logits_from_hidden(params, cfg: ModelConfig, hidden, par=None):
+    """Logits in float32; under tensor parallelism with the head split by
+    vocabulary, this rank's columns of them."""
+    if _head_split(params, cfg, par):
+        hidden = tpm.copy_to_tp(hidden, par)
     lg = hidden @ params["lm_head"]["w"]
     return softcap(lg.to(torch.float32), cfg.final_logit_softcap)
 
 
-def _chunk_loss(w, h, labels, cap: float):
+def _chunk_loss(w, h, labels, cap: float, par=None):
     lg = softcap((h @ w).to(torch.float32), cap)           # (B,c,V) f32
+    if par is not None:
+        return tpm.vocab_parallel_loss_sum(lg, labels, par)
     lse = torch.logsumexp(lg, dim=-1)
     gold = lg.gather(-1, labels[..., None].long())[..., 0]
     return (lse - gold).sum()
 
 
-def lm_loss(params, cfg: ModelConfig, hidden, labels):
+def lm_loss(params, cfg: ModelConfig, hidden, labels, par=None):
     """Memory-bounded cross-entropy: logits materialized per seq chunk of
     512 tokens and recomputed in backward (``jax.checkpoint`` in the
-    reference), so one chunk's float32 logits are live at a time."""
+    reference), so one chunk's float32 logits are live at a time.  With
+    the head split by vocabulary (``par``) each chunk's log-sum-exp and
+    gold logit are reduced over the "model" dim, in the forward and again
+    in the recompute."""
     b, s, _ = hidden.shape
     chunk = LOSS_CHUNK if s % LOSS_CHUNK == 0 else s
     w = params["lm_head"]["w"]
+    split = _head_split(params, cfg, par)
+    if split:
+        hidden = tpm.copy_to_tp(hidden, par)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         total = total + checkpoint(
             _chunk_loss, w, hidden[:, c0:c0 + chunk],
             labels[:, c0:c0 + chunk], cfg.final_logit_softcap,
-            use_reentrant=False)
+            par if split else None, use_reentrant=False)
     return total / (b * s)
 
 
@@ -427,13 +459,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
-                positions3=None, return_hidden: bool = False):
+                positions3=None, return_hidden: bool = False, par=None):
     """One decode step.  token: (B,1) integer tensor; index: current
     position; positions3: optional (B,1,3) M-RoPE ids of the token.
     Writes ``cache`` in place.  Returns (logits (B,1,V), cache); with
     return_hidden the first element is the final hidden state (B,1,D)
-    instead (the personalized-head serving path)."""
-    x = embed_tokens(params, cfg, token)
+    instead (the personalized-head serving path).  ``par``: this rank's
+    tensor-parallel block and cache slice (``attention.decode_attend``)."""
+    x = embed_tokens(params, cfg, token, par=par)
     for si, st in enumerate(compute_stages(cfg)):
         sc = cache[f"stage{si}"]
         for (r, j), p, kind in _stage_layers(cfg, st, params[f"stage{si}"]):
@@ -441,11 +474,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
             if st.which == "scan":
                 c = tree_map(lambda a: a[r], c)   # views: written in place
             x, _ = decode_layer(p, cfg, kind, x, c, index,
-                                positions3=positions3)
+                                positions3=positions3, par=par)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, cache
-    return logits_from_hidden(params, cfg, x), cache
+    return logits_from_hidden(params, cfg, x, par), cache
 
 
 def prefill(params, cfg: ModelConfig, batch, *, impl: str = "auto"):

@@ -136,3 +136,100 @@ def add_client_axis(spec_tree, mesh):
     if isinstance(spec_tree, dict):
         return {k: add_client_axis(v, mesh) for k, v in spec_tree.items()}
     return (lead, *spec_tree)
+
+
+# ------------------------------------------------ a rank's block of a tree --
+def _entry_axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def mesh_coordinate(mesh) -> dict[str, int]:
+    """This rank's coordinate along each dim of a ``DeviceMesh``."""
+    names = as_abstract(mesh).axis_names
+    return dict(zip(names, mesh.get_coordinate()))
+
+
+def block_index(entry, mesh, coord: dict[str, int]) -> tuple[int, int]:
+    """(index, count) of the block of a dim sharded by ``entry`` that the
+    rank at ``coord`` holds: the first axis of a tuple is the major one,
+    as in a ``PartitionSpec``."""
+    shape = as_abstract(mesh).shape
+    idx, n = 0, 1
+    for a in _entry_axes(entry):
+        idx = idx * shape[a] + coord[a]
+        n *= shape[a]
+    return idx, n
+
+
+def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
+    """A leaf's block shape under ``spec``."""
+    sizes = as_abstract(mesh).shape
+    out = []
+    for dim, entry in zip(shape, spec):
+        n = 1
+        for a in _entry_axes(entry):
+            n *= sizes[a]
+        out.append(dim // n)
+    return tuple(out)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _spec_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, tree[k], specs[k]) for k in tree}
+    if not _is_spec(specs):
+        raise ValueError(f"leaf meets spec subtree {specs!r}")
+    return fn(tree, specs)
+
+
+def spec_map(fn, spec_tree):
+    """``fn`` over the specs of a spec tree (dicts of spec tuples)."""
+    if isinstance(spec_tree, dict):
+        return {k: spec_map(fn, v) for k, v in spec_tree.items()}
+    return fn(spec_tree)
+
+
+def shard_params(tree, spec_tree, mesh, coord: dict[str, int] | None = None):
+    """The block of every leaf of a whole ``tree`` that the rank at
+    ``coord`` holds (this rank of a ``DeviceMesh`` by default) under
+    ``spec_tree`` (``params_specs``, ``input_specs``' specs): the
+    counterpart of the reference's ``named_sharding`` for the weights
+    carried across.  Blocks are contiguous copies."""
+    coord = mesh_coordinate(mesh) if coord is None else coord
+
+    def cut(x, spec):
+        for d, entry in enumerate(spec):
+            i, n = block_index(entry, mesh, coord)
+            if n > 1:
+                size = x.shape[d] // n
+                x = x.narrow(d, i * size, size)
+        return x.contiguous()
+
+    return _spec_map(cut, tree, spec_tree)
+
+
+def gather_params(tree, spec_tree, mesh):
+    """The whole leaves from every rank's blocks: ``all_gather`` over the
+    groups of each sharded dim, innermost axis first (the inverse of
+    :func:`shard_params`, bit for bit).  A collective: every rank of
+    ``mesh`` (a ``DeviceMesh``) calls it."""
+    import torch
+    import torch.distributed as dist
+
+    def whole(x, spec):
+        for d, entry in enumerate(spec):
+            for a in reversed(_entry_axes(entry)):
+                group = mesh.get_group(a)
+                parts = [torch.empty_like(x)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, x.contiguous(), group=group)
+                x = torch.cat(parts, dim=d)
+        return x
+
+    return _spec_map(whole, tree, spec_tree)

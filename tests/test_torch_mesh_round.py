@@ -134,7 +134,8 @@ def _configs():
 
 def _mesh_worker(rank, world, dev, ref_path):
     """One client rank: the three mesh rounds and the "model" > 1
-    refusal; rank 0 adds the host rounds on all four clients."""
+    refusal of a non-dense arch; rank 0 adds the host rounds on all four
+    clients."""
     from repro_torch.core.phsfl import (client_index, make_host_round,
                                         make_phsfl_round)
     from repro_torch.launch.mesh import make_mesh
@@ -177,10 +178,15 @@ def _mesh_worker(rank, world, dev, ref_path):
                                  torch.tensor(mask))
             host[name] = (_flat(p), _flat(s), float(m["loss"]))
         out["host"] = host
-    # a mesh is a collective: every rank builds the tensor-parallel one
+    # a mesh is a collective: every rank builds the tensor-parallel one.
+    # Tensor parallelism is ported for the dense decoders (mistral here);
+    # any other family is refused above model 1
+    from repro_torch.configs.registry import get_arch
     tp = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    make_phsfl_round(model, hcfg, tcfg, tp, global_sync=False)
+    olmoe = build_model(get_arch("olmoe-1b-7b").reduced())
     try:
-        make_phsfl_round(model, hcfg, tcfg, tp, global_sync=False)
+        make_phsfl_round(olmoe, hcfg, tcfg, tp, global_sync=False)
     except NotImplementedError as e:
         out["refused"] = str(e)
     return out
@@ -283,4 +289,6 @@ def test_params_spec_matches_reference(reference, ranks):
 
 
 def test_a_model_dim_above_one_is_refused(ranks):
+    # above model 1 only the non-dense families are refused (slice 12)
     assert "ROADMAP" in ranks[0]["refused"]
+    assert "slice 12" in ranks[0]["refused"]
