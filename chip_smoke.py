@@ -188,7 +188,8 @@ caught):
     clock, each block kind's share, busy share, kernel time by name; the
     same step under remat "full", which runs the sLSTM's loop twice);
     train_xlstm_2048: the same checks for one round at the published
-    context of 2048 tokens, 2 clients of one local step;
+    context of 2048 tokens, 2 clients of one local step, at the published
+    widths cut to 4 layers;
 22. train_rglru: recurrentgemma-2b's published widths cut to 3 layers,
     2 clients, one round of one step on 2 x 512 tokens, then a round of
     2 ESs with global_sync (Eq. 16): K4 and K2 counts, peak memory;
@@ -274,10 +275,21 @@ caught):
     before, a learning rate that lifts the bf16 update far above the
     weights' rounding) within 2e-2 / 2e-5 of model 1, the "model"
     group's ``all_reduce`` seconds and bytes, K2's launches a rank;
-    dryrun (last): the port's dry run of gemma3-12b x the four shapes on
-    the (16, 16) mesh over a fake group of 256 ranks, fake CUDA tensors:
-    each record's terms, traced against analytic FLOPs and collectives,
-    the traced peak, no K2 launch;
+    tp_families (after tp_gemma, on the same ranks and mesh, its
+    references computed before the spawn): olmoe-1b-7b, deepseek-v2-236b,
+    recurrentgemma-2b, xlstm-350m and seamless-m4t-medium at their
+    published widths cut in depth (bf16; olmoe and xlstm also in
+    float32) and reduced (float32): the prefill within 2e-2 / 2e-5 of
+    model 1 (with the MoE's tokens that take another expert counted),
+    the train round held on its update as tp_gemma's (recurrentgemma's
+    and seamless's bf16 cuts, both float32 cuts and every reduced
+    config; a MoE round replays model 1's expert choices), the "model"
+    group's collectives by kind, K2 / K3 / K4 launches a rank;
+    dryrun (last): the port's dry run of gemma3-12b x the four shapes
+    and deepseek-v2-236b at train_4k on the (16, 16) mesh over a fake
+    group of 256 ranks, fake CUDA tensors: each record's terms, traced
+    against analytic FLOPs and collectives, the traced peak, no K2
+    launch;
 33. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
     phases, the telemetry phases, the zoo's and seamless's, on the mesh
@@ -394,6 +406,10 @@ TRAIN_XLSTM = dict(rounds=1, clients=4, local_steps=2, micro=2, seq=256,
 # 370-448 s on the H100's host (PERF.md), most of the 1200 s this script has
 TRAIN_XLSTM_CONTEXT = dict(TRAIN_XLSTM, rounds=1, clients=2, local_steps=1,
                            seq=2048)
+# ... and cut in depth to 4 layers (2 mLSTM, 2 sLSTM): whole, its round
+# took 91-116 s on the H100's host, a sixth of the script's time, which
+# tp_families needs (PERF.md §6)
+TRAIN_XLSTM_CONTEXT_LAYERS = 4
 # host-clock repeats of the profiled local step's forward and backward
 TRAIN_STEP_REPEATS = 2
 # train_rglru: recurrentgemma-2b's published widths cut to 3 layers
@@ -2224,15 +2240,15 @@ def backward_seconds_by_block_kind(torch, loss_fn, repeats, targets):
 
 
 def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
-                      profile=True):
+                      profile=True, layers=None):
     """PHSFL training at xlstm-350m's published config whole (24 layers,
     d_model 1024, mLSTM heads of 512, vocab 50304, bf16) through
     train(): the reference CLI's traffic (4 clients in 1 ES, kappa0 = 2
     local steps of micro-batch 2, 5 head steps) with lr 0.01, the paper's
     eta; TRAIN_XLSTM runs 1 round at 256 tokens a sequence (the sLSTM's
     Python loop over time), TRAIN_XLSTM_CONTEXT one round of 2 clients x
-    one step at the published 2048.  Counts set to 0 just before and
-    read just after.
+    one step at the published 2048 (``layers``: cut to that depth).
+    Counts set to 0 just before and read just after.
     Fails on a non-finite loss, a head leaf that moved, clients that
     differ after the edge step, or a personalization gain <= 0 (on the
     fine-tune batch, as the reference evaluates it).  Then, with
@@ -2247,6 +2263,8 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
     from repro_torch.utils.prng import make_generator
     from repro_torch.utils.tree import tree_leaves, tree_map
     cfg = get_arch("xlstm-350m")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
     params = model.init(make_generator(kw["seed"], "cuda"))
     head0 = params["lm_head"]["w"].clone()
@@ -2289,7 +2307,8 @@ def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
           "personalization_gain": gain, "launches": counts,
           "mlstm_launches_expected": expected,
           "mlstm_launches_expected_from": "(rounds x clients x kappa0 "
-          "local-step forwards + head bank + 2 evals) x 12 mLSTM layers",
+          f"local-step forwards + head bank + 2 evals) x "
+          f"{sum(k == MLSTM for k in kinds)} mLSTM layers",
           "finite": finite, "head_frozen": frozen, "clients_equal": synced})
     assert finite, "non-finite loss"
     assert frozen, "a head leaf moved"
@@ -4331,12 +4350,13 @@ def phase_mesh_nccl(torch, np, kernels):
     return {"xlstm_round": round_counts, **shared_counts}
 
 
-def _reference_mesh_rank(rank, world, dev, inputs, tp_refs=None):
+def _reference_mesh_rank(rank, world, dev, inputs, tp_refs=None,
+                         family_refs=None):
     """One client rank of reference_mesh on the shared card: the three
     mesh rounds from the same inputs (its K2 launches counted), and on
     rank 0 the port's host round of all four clients on the card; then,
     with ``tp_refs``, tp_gemma's (data 2, model 2) mesh over the same
-    ranks (``_tp_gemma_rank``)."""
+    ranks, and with ``family_refs`` tp_families' on it (``_tp_rank``)."""
     import torch
     from repro_torch.core.phsfl import client_index, make_phsfl_round
     from repro_torch.hopper.flash_attention import kernel as fa
@@ -4375,7 +4395,10 @@ def _reference_mesh_rank(rank, world, dev, inputs, tp_refs=None):
     if tp_refs is not None:
         del params, state, batch, args
         torch.cuda.empty_cache()
-        out["tp"] = _tp_gemma_rank(rank, dev, tp_refs)
+        out["tp"] = _tp_rank(rank, dev, tp_refs)
+    if family_refs is not None:
+        torch.cuda.empty_cache()
+        out["tp_families"] = _tp_rank(rank, dev, family_refs)
     return out
 
 
@@ -4409,7 +4432,8 @@ def _reference_mesh_host(torch, model, hcfg, tcfg, params, state, batch,
     return out
 
 
-def phase_reference_mesh(torch, np, kernels, tp_refs=None):
+def phase_reference_mesh(torch, np, kernels, tp_refs=None,
+                         family_refs=None):
     """``make_phsfl_round`` on four ranks spawned on the one card over gloo
     (pod 2 x data 2 x model 1: two ESs of two clients), reduced
     mistral-large-123b (float32; K2 in its attention), 2 local steps of
@@ -4418,8 +4442,9 @@ def phase_reference_mesh(torch, np, kernels, tp_refs=None):
     Each rank's client against the port's host round of the four clients
     on the card (bit for bit, as predicted) and on the CPU (within
     MESH_TOL).  Each rank counts its own K2 launches.  With ``tp_refs``
-    the same ranks then run tp_gemma (``_tp_gemma_rank``).  Returns the
-    counts and the ranks' results."""
+    the same ranks then run tp_gemma, and with ``family_refs``
+    tp_families (each ``_tp_rank``).  Returns the counts and
+    the ranks' results."""
     from repro_torch.core.phsfl import build_optimizer, stack_replicas
     from repro_torch.launch.distributed import spawn
     from repro_torch.launch.train import _client_round_batch
@@ -4442,8 +4467,8 @@ def phase_reference_mesh(torch, np, kernels, tp_refs=None):
                    for x in (params, state, batch, au, ab))
     torch.cuda.empty_cache()
     ranks, wall = sync_time(torch, lambda: spawn(
-        _reference_mesh_rank, C, (inputs, tp_refs), device="cuda",
-        threads=2, timeout=600))
+        _reference_mesh_rank, C, (inputs, tp_refs, family_refs),
+        device="cuda", threads=2, timeout=900))
     card = ranks[0]["host"]
     rows = {}
     for case in ("plain", *MESH_MASKS):
@@ -4645,9 +4670,58 @@ TP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TP_LR = {"float32": 0.01, "bfloat16": 1000.0}
 TP_MARGIN = 3
 TP_ALPHA_U = (0.5, 0.5)
+# the cross-attention's k bias (its keys take no rotation) adds q.b to
+# every logit of a query, which the softmax cancels: its exact gradient is
+# 0, so its update is rounding noise on both sides, held under the
+# tolerance of the round's largest update instead
+TP_ZERO_GRAD = ("cross/k/b",)
+# tp_families: tensor parallelism for the other families, on the
+# same four gloo ranks and (data 2, model 2) mesh as tp_gemma, after it.
+# Each family at its published widths, cut in depth so that each block
+# kind appears at least once, bf16: olmoe-1b-7b and deepseek-v2-236b at 2
+# layers (deepseek: the dense first layer, then MLA + MoE of 160 experts
+# top-6 plus 2 shared), recurrentgemma-2b at 3 (RG-LRU, RG-LRU, local
+# attention), xlstm-350m at 2 (mLSTM, sLSTM), seamless-m4t-medium at 2 +
+# 2; and each family's reduced() config in float32 (recurrentgemma at 3
+# layers, the MoEs widened as zoo_config widens them).  The prefill step
+# and the train round as tp_gemma holds them.  deepseek's cut is 5.1 B
+# parameters, 10.2 GB in bf16 (its MoE layer alone 160 x 3 x 5120 x 1536
+# x 2 B = 7.55 GB, 3.77 GB a model rank): its round at model 1 would
+# hold three stacked copies of two clients' replicas (~61 GB) beside the
+# four ranks' blocks, so its bf16 case runs the prefill only.  xlstm's
+# round is cut to 256 tokens a client step: its sLSTM is a loop over
+# time.
+TP_FAMILY_LAYERS = {"olmoe-1b-7b": 2, "deepseek-v2-236b": 2,
+                    "recurrentgemma-2b": 3, "xlstm-350m": 2,
+                    "seamless-m4t-medium": 2}
+TP_FAMILY_TRAIN = {"xlstm-350m": ("train_tp_xlstm", 256, 4, "train")}
+# the bf16 rounds take one local step: at lr 1000 (which lifts a bf16
+# update above its ulps) a second step starts from weights moved far from
+# the init, where the MoE's routing, seamless's attention logits and the
+# xLSTM's gates amplify the two orders of summation's roundings (and
+# xlstm's overflows): it would check chaos, not the gradient
+TP_FAMILY_STEPS = {"bfloat16": 1, "float32": 2}
+# the bf16 cuts whose round holds at tp_gemma's limit on the H100
+# (PERF.md §6): olmoe's does not (in its bf16 prefill 6-48 of 2048 tokens
+# a layer and rank take another expert under the TP sums) and
+# xlstm's reads 1.5-1.75 of the limit (its row-split q/k/v rounded to bf16
+# twice, then the exponential gates): those two hold their round at the
+# published widths in float32 instead ("cut_float32"), olmoe's routing
+# replaying model 1's choices (below); deepseek's bf16 cut runs the
+# prefill only (above)
+TP_FAMILY_BF16_ROUNDS = {"recurrentgemma-2b", "seamless-m4t-medium"}
+TP_FAMILY_F32_CUTS = {"olmoe-1b-7b", "xlstm-350m"}
+# A MoE round replays model 1's expert choices, call by call, on each rank
+# (the reference's routing injected, as the CPU parity tests inject its
+# draws): a near-tie token flips under any reordering of the router's
+# input sums, and one flip moves an expert's update by a token's share.
 # dryrun: the port's dry run on the card's machine, gemma3-12b whole on the
 # (16, 16) production mesh over a fake group of 256 ranks, fake CUDA tensors
 DRYRUN_ARCH = "gemma3-12b"
+# ... and deepseek-v2-236b whole (MoE + MLA, the zoo's largest) at
+# train_4k with one local step a round (two took 161 s to trace on a CPU)
+DRYRUN_MOE = ("deepseek-v2-236b", "train_4k")
+DRYRUN_MOE_LOCAL_STEPS = 1
 
 
 def _gemma_cut(layers):
@@ -4843,13 +4917,17 @@ def phase_steps_gemma(torch, np, kernels):
 
 def _tp_cases():
     from repro_torch.configs.registry import get_arch
-    return {"reduced_float32": get_arch("gemma3-12b").reduced(),
-            "gemma3_2layers_bf16": _gemma_cut(TP_GEMMA_LAYERS)}
+    return {case: (cfg, TP_PREFILL, TP_TRAIN, 2) for case, cfg in (
+        ("reduced_float32", get_arch("gemma3-12b").reduced()),
+        ("gemma3_2layers_bf16", _gemma_cut(TP_GEMMA_LAYERS)))}
 
 
-def _tp_inputs(torch, cfg, device):
-    """The tp_gemma case's parameters (seed 0 on the card: the same in
-    every process), prefill batch and round inputs."""
+def _tp_inputs(torch, cfg, device, prefill=TP_PREFILL, train=TP_TRAIN,
+               steps=2):
+    """A tensor-parallel case's parameters (seed 0 on the card: the same
+    in every process), prefill batch and, with ``train``, the round's
+    inputs of ``steps`` local steps (else None for each).  The encoder-decoder's frames are 0.02 x
+    N(0, 1) (seed 4 for the prefill, 5 for the round)."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.core.phsfl import build_optimizer
     from repro_torch.launch.train import _client_round_batch
@@ -4857,84 +4935,121 @@ def _tp_inputs(torch, cfg, device):
     from repro_torch.utils.prng import make_generator
     model = build_model(cfg)
     params = model.init(make_generator(0, device))
-    pre = ShapeConfig(*TP_PREFILL)
+    pre = ShapeConfig(*prefill)
     g = torch.Generator().manual_seed(3)
     tok = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
                         generator=g).to(device)
-    tr = ShapeConfig(*TP_TRAIN)
-    tcfg = TrainConfig(learning_rate=TP_LR[cfg.dtype])
+    pbatch = {"tokens": tok, "labels": tok}
+    if cfg.encdec is not None:
+        g = torch.Generator().manual_seed(4)
+        pbatch["source_embeds"] = 0.02 * torch.randn(
+            (pre.global_batch, cfg.encdec.max_source_len, cfg.d_model),
+            generator=g).to(device)
+    tcfg = TrainConfig(learning_rate=TP_LR[cfg.dtype],
+                       local_steps_in_step=steps)
+    if train is None:
+        return model, params, pbatch, None, None, tcfg
+    tr = ShapeConfig(*train)
     k = tcfg.local_steps_in_step
     C = len(TP_ALPHA_U)
     batch = _client_round_batch(cfg, C, k, tr.global_batch // (C * k),
                                 tr.seq_len, seed=0, device=device)
+    if cfg.encdec is not None:
+        # the launcher's frames are a constant 0.02: every source position
+        # alike, so the cross-attention's queries (and the norm before
+        # them) take an exactly zero gradient; random frames (seed 5)
+        g = torch.Generator().manual_seed(5)
+        batch["source_embeds"] = 0.02 * torch.randn(
+            batch["source_embeds"].shape, generator=g).to(device)
     opt, _ = build_optimizer(model, tcfg, params=params)
-    return model, params, {"tokens": tok, "labels": tok}, batch, opt, tcfg
+    return model, params, pbatch, batch, opt, tcfg
 
 
 def phase_tp_gemma_prepare(torch, np):
-    """tp_gemma's references at model 1 on the card, before the spawn:
-    each case's last-position prefill logits and the host round of its
-    two clients; the round's expected updates (after - before, float32)
-    are cut for each of the four ranks of the (data 2, model 2) mesh
-    (rank = 2 data + model) and written, with the ulp of each block's
-    largest value after the round, to a git-ignored directory the ranks
-    read (the embedding's rows that the batch touches, every other leaf
-    whole)."""
+    """tp_gemma's references at model 1 on the card (``_tp_prepare``)."""
+    return _tp_prepare(torch, np, "tp_gemma", _tp_cases())
+
+
+def _tp_prepare(torch, np, name, cases):
+    """A tensor-parallel phase's references at model 1 on the card,
+    before the spawn: each case's last-position prefill logits and, where
+    it has a round, the host round of its two clients; the round's
+    expected updates (after - before, float32) are cut for each of the
+    four ranks of the (data 2, model 2) mesh (rank = 2 data + model) and
+    written, with the ulp of each block's largest value after the round,
+    to a git-ignored directory the ranks read (the embedding's rows that
+    the batch touches, every other leaf whole).  ``cases``: {case:
+    (config, prefill shape, train shape or None, local steps)}."""
     import gc
     from repro_torch.configs.base import HierarchyConfig
     from repro_torch.core.phsfl import make_host_round, stack_replicas
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding.rules import params_specs, shard_params
     from repro_torch.utils.tree import path_leaves, tree_map
-    out_dir = ROOT / "build" / "tp_gemma"
+    out_dir = ROOT / "build" / name
     out_dir.mkdir(parents=True, exist_ok=True)
-    refs = {"dir": str(out_dir), "prefill": {}, "host_round_s": {},
-            "host_peak_GB": {}}
+    refs = {"name": name, "dir": str(out_dir), "cases": dict(cases),
+            "prefill": {}, "host_round_s": {}, "host_peak_GB": {},
+            "loss": {}, "prepare_s": {}, "routes": {}}
     mesh = make_mesh((2, 2), ("data", "model"), abstract=True)
-    for case, cfg in _tp_cases().items():
-        model, params, pbatch, batch, opt, tcfg = _tp_inputs(torch, cfg,
-                                                             "cuda")
-        lg = model.logits(params, model.apply(params, pbatch)[0][:, -1:])
+    for case, (cfg, prefill, train, steps) in cases.items():
+        t0 = time.perf_counter()
+        model, params, pbatch, batch, opt, tcfg = _tp_inputs(
+            torch, cfg, "cuda", prefill, train, steps)
+        routes = {"prefill": [], "round": []}
+        with _routes(torch, record=routes["prefill"]):
+            lg = model.logits(params, model.apply(params, pbatch)[0][:, -1:])
         refs["prefill"][case] = lg.float().cpu().numpy()
-        del lg
-        C = len(TP_ALPHA_U)
-        host = make_host_round(model, HierarchyConfig(
-            num_edge_servers=1, clients_per_es=C,
-            kappa0=tcfg.local_steps_in_step, kappa1=1), tcfg,
-            num_clients=C, global_sync=False)
-        au = torch.tensor(TP_ALPHA_U, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        (ph, sh, mh), wall = sync_time(torch, lambda: host.fn(
-            stack_replicas(params, C), stack_replicas(opt.init(params), C),
-            batch, au, au))
-        refs["host_round_s"][case] = wall
-        refs["host_peak_GB"][case] = torch.cuda.max_memory_allocated() / 1e9
-        refs.setdefault("loss", {})[case] = float(mh["loss"])
-        spec = params_specs(params, model.axes(), mesh, mode="tp")
-        touched = torch.unique(batch["tokens"]).cpu()
-        for rank in range(4):
-            coord = {"data": rank // 2, "model": rank % 2}
-            c = coord["data"]
-            mine = shard_params(tree_map(lambda x: x[c], ph), spec,
-                                mesh, coord)
-            before = dict(path_leaves(shard_params(params, spec, mesh,
-                                                   coord)))
-            flat = {}
-            for p, t in path_leaves(mine):
-                flat[f"{p}@ulp"] = _ulp(torch, t)
-                b0 = before[p]
-                if p == "embed/table":
-                    vl = t.shape[0]
-                    lo = coord["model"] * vl
-                    idx = touched[(touched >= lo) & (touched < lo + vl)]
-                    flat["embed_rows_idx"] = (idx - lo).numpy()
-                    rows = (idx - lo).to(t.device)
-                    t, b0 = t[rows], b0[rows]
-                flat[p] = (t.float() - b0.float()).cpu().numpy()
-            np.savez(out_dir / f"{case}_rank{rank}.npz", **flat)
-        del params, ph, sh, mh, host, batch, pbatch, opt
+        del lg, pbatch
+        if train is not None:
+            C = len(TP_ALPHA_U)
+            host = make_host_round(model, HierarchyConfig(
+                num_edge_servers=1, clients_per_es=C,
+                kappa0=tcfg.local_steps_in_step, kappa1=1), tcfg,
+                num_clients=C, global_sync=False)
+            au = torch.tensor(TP_ALPHA_U, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            with _routes(torch, record=routes["round"]):
+                (ph, sh, mh), wall = sync_time(torch, lambda: host.fn(
+                    stack_replicas(params, C),
+                    stack_replicas(opt.init(params), C), batch, au, au))
+            n = len(routes["round"]) // C      # each client's calls, in turn
+            routes["round"] = [routes["round"][c * n:(c + 1) * n]
+                               for c in range(C)]
+            refs["host_round_s"][case] = wall
+            refs["host_peak_GB"][case] = (torch.cuda.max_memory_allocated()
+                                          / 1e9)
+            refs["loss"][case] = float(mh["loss"])
+            spec = params_specs(params, model.axes(), mesh, mode="tp")
+            touched = torch.unique(batch["tokens"]).cpu()
+            for rank in range(4):
+                coord = {"data": rank // 2, "model": rank % 2}
+                c = coord["data"]
+                mine = shard_params(tree_map(lambda x: x[c], ph), spec,
+                                    mesh, coord)
+                before = dict(path_leaves(shard_params(params, spec, mesh,
+                                                       coord)))
+                flat = {}
+                for p, t in path_leaves(mine):
+                    flat[f"{p}@ulp"] = _ulp(torch, t)
+                    b0 = before[p]
+                    if p == "embed/table":
+                        vl = t.shape[0]
+                        lo = coord["model"] * vl
+                        idx = touched[(touched >= lo) & (touched < lo + vl)]
+                        flat["embed_rows_idx"] = (idx - lo).numpy()
+                        rows = (idx - lo).to(t.device)
+                        t, b0 = t[rows], b0[rows]
+                    flat[p] = (t.float() - b0.float()).cpu().numpy()
+                np.savez(out_dir / f"{case}_rank{rank}.npz", **flat)
+                del mine, before, flat
+            del ph, sh, mh, host, batch, opt
+        del params
         gc.collect()
         torch.cuda.empty_cache()
+        if cfg.moe is not None:
+            refs["routes"][case] = routes
+        refs["prepare_s"][case] = time.perf_counter() - t0
     return refs
 
 
@@ -4947,112 +5062,178 @@ def _ulp(torch, t) -> float:
         if x > 0 else 0.0
 
 
-def _timed_all_reduce(torch, dist, group):
-    """Wrap ``dist.all_reduce``: the seconds (synchronised) and bytes of
-    its calls on ``group``; returns (traffic, restore)."""
-    reduce = dist.all_reduce
-    traffic = {"calls": 0, "bytes": 0, "seconds": 0.0}
+def _timed_collectives(torch, dist, group):
+    """Wrap ``dist.all_reduce``, ``dist.all_gather`` and
+    ``dist.reduce_scatter``: the seconds (synchronised), calls and bytes
+    (the whole tensor: the reduced one, the gathered one, the one
+    scattered) of their calls on ``group``, by kind; returns (traffic,
+    restore)."""
+    kinds = {"all_reduce": lambda a: a[0].numel() * a[0].element_size(),
+             "all_gather": lambda a: sum(t.numel() * t.element_size()
+                                         for t in a[0]),
+             "reduce_scatter": lambda a: sum(t.numel() * t.element_size()
+                                             for t in a[1])}
+    traffic = {k: {"calls": 0, "bytes": 0, "seconds": 0.0} for k in kinds}
+    saved = {k: getattr(dist, k) for k in kinds}
 
-    def timed(t, *a, **k):
-        if k.get("group") is not group:
-            return reduce(t, *a, **k)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = reduce(t, *a, **k)
-        torch.cuda.synchronize()
-        traffic["seconds"] += time.perf_counter() - t0
-        traffic["calls"] += 1
-        traffic["bytes"] += t.numel() * t.element_size()
-        return out
+    def wrap(kind):
+        fn = saved[kind]
 
-    dist.all_reduce = timed
+        def timed(*a, **k):
+            if k.get("group") is not group:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            row = traffic[kind]
+            row["seconds"] += time.perf_counter() - t0
+            row["calls"] += 1
+            row["bytes"] += kinds[kind](a)
+            return out
+        return timed
+
+    for kind in kinds:
+        setattr(dist, kind, wrap(kind))
 
     def restore():
-        dist.all_reduce = reduce
+        for kind, fn in saved.items():
+            setattr(dist, kind, fn)
 
     return traffic, restore
 
 
-def _tp_gemma_rank(rank, dev, refs):
-    """One rank of tp_gemma: the (data 2, model 2) mesh over
-    reference_mesh's four gloo ranks; each case's prefill step and train
-    round on this rank's block, against the references at model 1
-    (``phase_tp_gemma_prepare``): the prefill's logits gathered by their
-    spec, the round's blocks against the host round's.  Returns the
-    errors, the K2 launches, the seconds and bytes of the "model" group's
-    ``all_reduce`` calls and the peak."""
+def _kernel_launches():
+    """K2's, K3's and K4's launch counters, to reset and read."""
+    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.hopper.mlstm_chunk import kernel as ml
+    from repro_torch.hopper.rglru_scan import kernel as rg
+    return {"flash_attention": fa, "mlstm_chunk": ml, "rglru_scan": rg}
+
+
+def _tp_rank(rank, dev, refs):
+    """One rank of a tensor-parallel phase: the (data 2, model 2) mesh
+    over reference_mesh's four gloo ranks; each case's prefill step and,
+    where it has one, train round on this rank's block, against the
+    references at model 1 (``_tp_prepare``): the prefill's logits
+    gathered by their spec, the round's blocks against the host round's.
+    One rank at a time draws the whole parameters and keeps its blocks
+    (four whole copies of deepseek's cut would not fit beside each
+    other).  Returns the errors, the K2 / K3 / K4 launches, the seconds
+    and bytes of the "model" group's collectives and the peak."""
     import gc
     import numpy as np
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.hopper.flash_attention import kernel as fa
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import build_step, rank_args
+    from repro_torch.models.init_utils import shape_generator
+    from repro_torch.models.registry import build_model
     from repro_torch.sharding.rules import (gather_params, mesh_coordinate,
                                             params_specs, shard_params)
     from repro_torch.utils.tree import path_leaves, tree_map
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cuda")
     coord = mesh_coordinate(mesh)
     assert coord == {"data": rank // 2, "model": rank % 2}, coord
-    out = {"coord": coord, "all_gather_cuda": None}
-    for case, cfg in _tp_cases().items():
+    counters = _kernel_launches()
+    out = {"coord": coord}
+    for case, (cfg, prefill, train, steps) in refs["cases"].items():
         tol = TP_TOL[cfg.dtype]
-        model, params, pbatch, batch, opt, tcfg = _tp_inputs(torch, cfg, dev)
+        tcfg = TrainConfig(learning_rate=TP_LR[cfg.dtype],
+                           local_steps_in_step=steps)
+        b = build_step(cfg, ShapeConfig(*prefill), mesh)
+        bt = (build_step(cfg, ShapeConfig(*train), mesh, tcfg=tcfg)
+              if train is not None else None)
+        model = build_model(cfg)
+        spec = params_specs(model.init(shape_generator()), model.axes(),
+                            mesh, mode="tp")
+        for r in range(4):
+            if r == rank:
+                _, params, pbatch, batch, opt, _ = _tp_inputs(
+                    torch, cfg, dev, prefill, train, steps)
+                args = rank_args(b, (params, pbatch), mesh)
+                if bt is not None:
+                    local = shard_params(params, spec, mesh)
+                del params, pbatch
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
         row = {}
         # ---- prefill (fsdp_tp: the embed dims gathered over "data") ----
-        b = build_step(cfg, ShapeConfig(*TP_PREFILL), mesh)
-        args = rank_args(b, (params, pbatch), mesh)
-        traffic, restore = _timed_all_reduce(torch, dist,
+        traffic, restore = _timed_collectives(torch, dist,
                                               mesh.get_group("model"))
-        fa.launches = 0
+        for k in counters.values():
+            k.launches = 0
+        routes = refs["routes"].get(case)
+        calls = []
         try:
-            lg, wall = sync_time(torch, lambda: b.fn(*args))
+            with _routes(torch, record=calls):
+                lg, wall = sync_time(torch, lambda: b.fn(*args))
         finally:
             restore()
+        if routes is not None:
+            # tokens of this rank's rows whose experts differ from model 1's
+            row["prefill_route_flips"] = [
+                int((np.sort(got, -1) != np.sort(want.reshape(
+                    len(TP_ALPHA_U), -1, want.shape[-1])[coord["data"]],
+                    -1)).any(-1).sum()) for got, want in zip(
+                        calls, routes["prefill"])]
+            row["prefill_routed_tokens"] = int(calls[0].shape[0])
         row["prefill_s"] = wall
-        row["prefill_launches"] = fa.launches
-        row["prefill_model_all_reduce"] = dict(traffic)
+        row["prefill_launches"] = {n: k.launches
+                                   for n, k in counters.items()}
+        row["prefill_model_collectives"] = traffic
+        row["prefill_model_all_reduce"] = dict(traffic["all_reduce"])
         whole = gather_params({"x": lg}, {"x": ("data", None, "model")},
                               mesh)["x"]
         want = refs["prefill"][case]
         got = whole.float().cpu().numpy()
         row["prefill_max_abs_err"] = float(np.abs(got - want).max())
         row["prefill_scale"] = max(1.0, float(np.abs(want).max()))
-        row["prefill_ok"] = row["prefill_max_abs_err"] <= tol * row[
-            "prefill_scale"]
+        row["prefill_ok"] = bool(np.isfinite(got).all()) and row[
+            "prefill_max_abs_err"] <= tol * row["prefill_scale"]
         del args, lg, whole
-        # ---- the train round ----
-        b = build_step(cfg, ShapeConfig(*TP_TRAIN), mesh, tcfg=tcfg)
-        spec = params_specs(params, model.axes(), mesh, mode="tp")
-        local = shard_params(params, spec, mesh)
-        init_local = tree_map(torch.clone, local)
-        del params
         gc.collect()
         torch.cuda.empty_cache()
+        if bt is None:
+            row["round_ok"] = True
+            out[case] = row
+            continue
+        # ---- the train round ----
+        init_local = tree_map(torch.clone, local)
         p1 = tree_map(lambda t: t.unsqueeze(0), local)
         s1 = tree_map(lambda t: t.unsqueeze(0), opt.init(local))
-        rest = rank_args(b, (None, None, batch,
-                             np.asarray(TP_ALPHA_U, np.float32),
-                             np.asarray(TP_ALPHA_U, np.float32)), mesh)[2:]
-        traffic, restore = _timed_all_reduce(torch, dist,
+        del local
+        rest = rank_args(bt, (None, None, batch,
+                              np.asarray(TP_ALPHA_U, np.float32),
+                              np.asarray(TP_ALPHA_U, np.float32)), mesh)[2:]
+        del batch
+        traffic, restore = _timed_collectives(torch, dist,
                                               mesh.get_group("model"))
         torch.cuda.reset_peak_memory_stats(dev)
-        fa.launches = 0
+        for k in counters.values():
+            k.launches = 0
+        replay = (routes["round"][coord["data"]]
+                  if routes is not None else None)
         try:
-            (pm, sm, mm), wall = sync_time(torch, lambda: b.fn(p1, s1,
-                                                               *rest))
+            with _routes(torch, replay=replay):
+                (pm, sm, mm), wall = sync_time(torch, lambda: bt.fn(
+                    p1, s1, *rest))
         finally:
             restore()
+        row["round_routes_pinned"] = replay is not None
         row["round_s"] = wall
         row["round_peak_GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
-        row["round_launches"] = fa.launches
-        row["round_model_all_reduce"] = dict(traffic)
+        row["round_launches"] = {n: k.launches for n, k in counters.items()}
+        row["round_model_collectives"] = traffic
+        row["round_model_all_reduce"] = dict(traffic["all_reduce"])
         row["loss"] = float(mm["loss"])
         ref = np.load(f"{refs['dir']}/{case}_rank{rank}.npz")
         before = dict(path_leaves(init_local))
         worst, head_frozen, untouched_equal = 0.0, True, True
-        margins, update_max, leaves = [], 0.0, {}
+        margins, update_max, leaves, noise = [], 0.0, {}, {}
+        finite = True
         writes = tcfg.local_steps_in_step + 1
         for p, t in path_leaves(pm):
             t = t[0]
@@ -5068,7 +5249,11 @@ def _tp_gemma_rank(rank, dev, refs):
                 t, b0 = t[idx], b0[idx]
             got = (t.float() - b0.float()).cpu().numpy()
             want = ref[p]
+            finite &= bool(np.isfinite(got).all() and np.isfinite(want).all())
             scale = float(np.abs(want).max())
+            if p.endswith(TP_ZERO_GRAD):
+                noise[p] = max(scale, float(np.abs(got).max()))
+                continue
             ulp = float(ref[f"{p}@ulp"])
             limit = tol * scale + writes * ulp
             err = float(np.abs(got - want).max())
@@ -5081,6 +5266,10 @@ def _tp_gemma_rank(rank, dev, refs):
             worst = max(worst, err / limit)
             margins.append(scale / limit)
             update_max = max(update_max, scale)
+        # a leaf whose exact gradient is 0 moves by rounding noise alone
+        row["round_zero_grad_noise"] = noise
+        worst = max([worst, *(n / (tol * update_max)
+                              for n in noise.values())])
         row["round_err_over_limit"] = worst
         row["round_update_max"] = update_max
         row["round_margin_median"] = float(np.median(margins))
@@ -5089,14 +5278,16 @@ def _tp_gemma_rank(rank, dev, refs):
             leaves.items(), key=lambda kv: -kv[1]["err_over_limit"])[:3]
         row["round_unmoved"] = sorted(p for p, r in leaves.items()
                                       if r["update_ulps"] == 0)
-        row["round_ok"] = (worst <= 1.0 and head_frozen and untouched_equal
+        row["round_finite"] = finite
+        row["round_ok"] = (finite and worst <= 1.0 and head_frozen
+                           and untouched_equal
                            and row["round_margin_median"] >= TP_MARGIN
                            and abs(row["loss"] - refs["loss"][case])
                            <= tol * max(1.0, abs(refs["loss"][case])))
         row["head_frozen"], row["embed_untouched_rows_equal"] = (
             head_frozen, untouched_equal)
         out[case] = row
-        del pm, sm, p1, s1, local, init_local, rest
+        del pm, sm, p1, s1, init_local, rest, ref
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -5109,7 +5300,7 @@ def phase_tp_gemma(torch, np, refs, ranks):
     under remat)."""
     import shutil
     rows = {}
-    for case, cfg in _tp_cases().items():
+    for case, (cfg, _, _, _) in _tp_cases().items():
         n = attention_layers(cfg)
         rs = [r["tp"][case] for r in ranks]
         rows[case] = {
@@ -5140,8 +5331,10 @@ def phase_tp_gemma(torch, np, refs, ranks):
                                          for r in rs],
             "round_model_all_reduce": [r["round_model_all_reduce"]
                                        for r in rs],
-            "launches": {"prefill": [r["prefill_launches"] for r in rs],
-                         "round": [r["round_launches"] for r in rs]},
+            "launches": {"prefill": [r["prefill_launches"][
+                "flash_attention"] for r in rs],
+                         "round": [r["round_launches"]["flash_attention"]
+                                   for r in rs]},
             "launches_expected": {"prefill": n, "round": 2 * 2 * n},
             "ok": all(r["prefill_ok"] and r["round_ok"] for r in rs)}
     emit({"phase": "tp_gemma", "mesh": {"data": 2, "model": 2},
@@ -5157,14 +5350,172 @@ def phase_tp_gemma(torch, np, refs, ranks):
     return {case: row["launches"] for case, row in rows.items()}
 
 
+def _tp_family_cases():
+    """tp_families' cases: {arch/kind: (config, prefill, train or None,
+    local steps)}; kind is the cut's dtype, "cut_float32" or the reduced
+    config's "float32"."""
+    from repro_torch.configs.registry import get_arch
+    cases = {}
+    for arch, layers in TP_FAMILY_LAYERS.items():
+        whole = get_arch(arch)
+        cut = dataclasses.replace(whole, num_layers=layers)
+        if whole.encdec is not None:
+            cut = dataclasses.replace(cut, encdec=dataclasses.replace(
+                whole.encdec, num_encoder_layers=layers))
+        small = zoo_config(arch, num_layers=max(2, len(whole.block_pattern)))
+        train = TP_FAMILY_TRAIN.get(arch, TP_TRAIN)
+        cases[f"{arch}/bfloat16"] = (
+            cut, TP_PREFILL, train if arch in TP_FAMILY_BF16_ROUNDS else None,
+            TP_FAMILY_STEPS["bfloat16"])
+        if arch in TP_FAMILY_F32_CUTS:
+            cases[f"{arch}/cut_float32"] = (
+                dataclasses.replace(cut, dtype="float32"), TP_PREFILL, train,
+                TP_FAMILY_STEPS["float32"])
+        cases[f"{arch}/float32"] = (small, TP_PREFILL, train,
+                                    TP_FAMILY_STEPS["float32"])
+    return cases
+
+
+@contextlib.contextmanager
+def _routes(torch, record=None, replay=None):
+    """``models.moe.route`` recording each call's experts (numpy, into
+    ``record``) or replaying ``replay``'s, call by call: the experts given,
+    their weights read from this run's router probabilities (renormalised
+    with the 1e-9 clamp) and the load-balance loss from this run's
+    probabilities over the given experts, as ``route`` computes them."""
+    from repro_torch.models import moe
+    route = moe.route
+    calls = iter(replay or ())
+
+    def wrapped(p, cfg, flat):
+        out = route(p, cfg, flat)
+        if record is not None:
+            record.append(out[1].cpu().numpy())
+        if replay is None:
+            return out
+        m = cfg.moe
+        probs = torch.softmax(flat.to(torch.float32) @ p["router"]["w"],
+                              dim=-1)
+        top_e = torch.from_numpy(next(calls)).to(flat.device)
+        top_w = probs.gather(-1, top_e)
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        e = top_e.reshape(-1)
+        counts = torch.zeros(m.num_experts, dtype=torch.int64,
+                             device=e.device).scatter_add_(
+            0, e, torch.ones_like(e))
+        share = counts.to(torch.float32) / (flat.shape[0] * m.top_k)
+        aux = m.num_experts * (share * probs.mean(dim=0)).sum()
+        return top_w, top_e, counts, aux
+
+    moe.route = wrapped
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _tp_family_file(case: str) -> str:
+    return case.replace("/", "_")
+
+
+def phase_tp_families_prepare(torch, np):
+    """tp_families' references at model 1 on the card (``_tp_prepare``),
+    the case names made file names."""
+    cases = {_tp_family_file(c): v for c, v in _tp_family_cases().items()}
+    return _tp_prepare(torch, np, "tp_families", cases)
+
+
+def _tp_expected(cfg) -> dict:
+    """K2's, K3's and K4's launches of a prefill of ``cfg`` on every rank
+    (the local heads, width or experts run the same layers)."""
+    from repro_torch.configs.base import MLSTM, RGLRU
+    kinds = cfg.layer_kinds()
+    return {"flash_attention": attention_layers(cfg),
+            "mlstm_chunk": sum(k == MLSTM for k in kinds),
+            "rglru_scan": sum(k == RGLRU for k in kinds)}
+
+
+def phase_tp_families(torch, np, refs, ranks):
+    """tp_families' report: each case's errors on every rank against model
+    1, the "model" group's collectives (calls, bytes, seconds, by kind)
+    and each rank's K2 / K3 / K4 launches against the count reckoned for
+    the local shapes: a prefill's one a layer of the kernel's kind, a
+    round's 2 local steps x 2 (remat "full" runs the forward again)."""
+    import shutil
+    rows = {}
+    for case, (cfg, prefill, train, steps) in refs["cases"].items():
+        rs = [r["tp_families"][case] for r in ranks]
+        pre = _tp_expected(cfg)
+        row = {
+            "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "vocab": cfg.padded_vocab,
+            "tol": TP_TOL[cfg.dtype], "prefill": prefill, "train": train,
+            "local_steps": steps,
+            "prefill_max_abs_err": [r["prefill_max_abs_err"] for r in rs],
+            "prefill_scale": rs[0]["prefill_scale"],
+            "prefill_s": [r["prefill_s"] for r in rs],
+            "prefill_model_collectives": [r["prefill_model_collectives"]
+                                          for r in rs],
+            "launches": {"prefill": [r["prefill_launches"] for r in rs]},
+            "launches_expected": {"prefill": pre},
+            "prefill_route_flips": [r.get("prefill_route_flips")
+                                    for r in rs],
+            "prefill_routed_tokens": rs[0].get("prefill_routed_tokens"),
+            "prepare_s": refs["prepare_s"][case]}
+        if train is not None:
+            k = steps * 2
+            row.update({
+                "lr": TP_LR[cfg.dtype],
+                "round_err_over_limit": [r["round_err_over_limit"]
+                                         for r in rs],
+                "round_update_max": [r["round_update_max"] for r in rs],
+                "round_margin_median": [r["round_margin_median"]
+                                        for r in rs],
+                "round_margin_min": [r["round_margin_min"] for r in rs],
+                "round_worst_leaves": rs[0]["round_worst_leaves"],
+                "round_unmoved": rs[0]["round_unmoved"],
+                "round_finite": [r["round_finite"] for r in rs],
+                "round_routes_pinned": rs[0]["round_routes_pinned"],
+                "round_zero_grad_noise": rs[0]["round_zero_grad_noise"],
+                "head_frozen": [r["head_frozen"] for r in rs],
+                "embed_untouched_rows_equal": [
+                    r["embed_untouched_rows_equal"] for r in rs],
+                "loss": [r["loss"] for r in rs],
+                "loss_model1": refs["loss"][case],
+                "round_s": [r["round_s"] for r in rs],
+                "round_model1_host_s": refs["host_round_s"][case],
+                "round_peak_GB": [r["round_peak_GB"] for r in rs],
+                "host_round_peak_GB": refs["host_peak_GB"][case],
+                "round_model_collectives": [r["round_model_collectives"]
+                                            for r in rs]})
+            row["launches"]["round"] = [r["round_launches"] for r in rs]
+            row["launches_expected"]["round"] = {n: k * c
+                                                 for n, c in pre.items()}
+        row["ok"] = all(r["prefill_ok"] and r["round_ok"] for r in rs)
+        rows[case] = row
+    emit({"phase": "tp_families", "mesh": {"data": 2, "model": 2},
+          "backend": "gloo", "alpha_u": TP_ALPHA_U, "cases": rows})
+    shutil.rmtree(refs["dir"], ignore_errors=True)
+    for case, row in rows.items():
+        assert row["ok"], (case, row)
+        for kind, want in row["launches_expected"].items():
+            assert row["launches"][kind] == [want] * 4, (case, kind, row[
+                "launches"])
+    return {name: {case: {kind: [r[name] for r in row["launches"][kind]]
+                          for kind in row["launches"]}
+                   for case, row in rows.items()}
+            for name in ("flash_attention", "mlstm_chunk", "rglru_scan")}
+
+
 def phase_dryrun(torch):
     """The port's dry run on this machine: gemma3-12b whole x the four
-    shapes x the (16, 16) mesh, over a fake group of 256 ranks, on fake
-    CUDA tensors (K2 through its fake registration; nothing launched).
-    Each record's three terms, the traced FLOPs against the analytic
-    ones, the collective bytes a rank by kind and mesh dim against the
-    analytic coll_tp / coll_edge, the traced peak and the trace's
-    seconds."""
+    shapes x the (16, 16) mesh, and deepseek-v2-236b whole (MoE and MLA,
+    the zoo's largest) at train_4k on it, over a fake group of 256 ranks,
+    on fake CUDA tensors (K2 through its fake registration; nothing
+    launched).  Each record's three terms, the traced FLOPs against the
+    analytic ones, the collective bytes a rank by kind and mesh dim
+    against the analytic coll_tp / coll_edge, the traced peak and the
+    trace's seconds."""
     from repro_torch.configs.registry import supports_shape
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.hopper.flash_attention import kernel as fa
@@ -5172,11 +5523,14 @@ def phase_dryrun(torch):
     out_dir = ROOT / "build" / "dryrun_torch"
     rows = {}
     before = fa.launches
-    for name in SHAPES:
-        if not supports_shape(DRYRUN_ARCH, name):
-            continue
-        rec = dryrun.run_one(DRYRUN_ARCH, name, "single",
-                             out_dir=str(out_dir), verbose=False)
+    runs = [(DRYRUN_ARCH, name) for name in SHAPES
+            if supports_shape(DRYRUN_ARCH, name)] + [DRYRUN_MOE]
+    for arch, name in runs:
+        rec = dryrun.run_one(arch, name, "single", out_dir=str(out_dir),
+                             verbose=False, local_steps=(
+                                 DRYRUN_MOE_LOCAL_STEPS
+                                 if (arch, name) == DRYRUN_MOE else None))
+        name = name if arch == DRYRUN_ARCH else f"{arch}/{name}"
         c = rec["collective_detail"]
         rows[name] = {
             "trace_device": rec["trace_device"],
@@ -5196,10 +5550,10 @@ def phase_dryrun(torch):
                                "coll_fsdp") if k in rec["analytic_detail"]},
             "peak_memory_GB": rec["peak_memory_bytes"] / 1e9,
             "trace_s": rec["trace_s"]}
-    emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "mesh": "single (16, 16)",
-          "chips": 256, "records": rows,
+    emit({"phase": "dryrun", "arch": DRYRUN_ARCH, "moe": DRYRUN_MOE,
+          "mesh": "single (16, 16)", "chips": 256, "records": rows,
           "k2_launches_during_trace": fa.launches - before})
-    assert len(rows) == 4, sorted(rows)
+    assert len(rows) == 5, sorted(rows)
     assert all(r["trace_device"] == "cuda" for r in rows.values())
     assert fa.launches == before
     for r in rows.values():
@@ -5288,6 +5642,7 @@ def main() -> int:
     train_counts["train_xlstm"] = phase_train_xlstm(torch, kernels)
     train_counts["train_xlstm_2048"] = phase_train_xlstm(
         torch, kernels, TRAIN_XLSTM_CONTEXT, "train_xlstm_2048",
+        layers=TRAIN_XLSTM_CONTEXT_LAYERS,
         profile=False)
     train_counts["train_rglru"] = phase_train_rglru(torch, kernels)
     phase_resume_train(torch, np)
@@ -5309,9 +5664,11 @@ def main() -> int:
     mesh_counts = {"mesh_nccl": phase_mesh_nccl(torch, np, kernels)}
     launch_tools = {"steps_gemma": phase_steps_gemma(torch, np, kernels)}
     tp_refs = phase_tp_gemma_prepare(torch, np)
+    family_refs = phase_tp_families_prepare(torch, np)
     mesh_counts["reference_mesh"], ranks = phase_reference_mesh(
-        torch, np, kernels, tp_refs)
+        torch, np, kernels, tp_refs, family_refs)
     launch_tools["tp_gemma"] = phase_tp_gemma(torch, np, tp_refs, ranks)
+    tp_families = phase_tp_families(torch, np, family_refs, ranks)
     del ranks
     mesh_counts["train_mesh_seamless"] = phase_train_mesh_seamless(
         torch, np, kernels)
@@ -5367,7 +5724,8 @@ def main() -> int:
         "launch_tools_launches": {
             "steps_gemma": {kind: c["flash_attention"] for kind, c in
                             launch_tools["steps_gemma"].items()},
-            "tp_gemma_per_rank": launch_tools["tp_gemma"]},
+            "tp_gemma_per_rank": launch_tools["tp_gemma"],
+            "tp_families_per_rank": tp_families["flash_attention"]},
         "wireless_launches": wireless_launches("flash_attention"),
         "telemetry": telemetry("flash_attention"),
         "within_tolerance": True,
@@ -5428,6 +5786,8 @@ def main() -> int:
         "launches": mlstm_launches,
         "train_launches": train_launches("mlstm_chunk"),
         "mesh_launches": mesh_launches("mlstm_chunk"),
+        "launch_tools_launches": {
+            "tp_families_per_rank": tp_families["mlstm_chunk"]},
         "wireless_launches": wireless_launches("mlstm_chunk"),
         "telemetry": telemetry("mlstm_chunk"),
         "within_tolerance": True,
@@ -5444,6 +5804,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:46",
         "launches": rglru_launches,
         "train_launches": train_launches("rglru_scan"),
+        "launch_tools_launches": {
+            "tp_families_per_rank": tp_families["rglru_scan"]},
         "wireless_launches": wireless_launches("rglru_scan"),
         "telemetry": telemetry("rglru_scan"),
         "within_tolerance": True,

@@ -18,9 +18,11 @@ Three strategies:
    over the "pod" group (``core.hierarchy``'s mesh half).
 
 3. ``make_shared_server_step`` (beyond the paper, SFL-V2-like): one
-   shared copy of the body and head on every rank, the small client
-   block per client; the shared leaves' gradients are summed over every
-   client rank each step, and the client blocks aggregate at the kappa0
+   shared body and head, laid out as the reference's ``fsdp_tp`` (its
+   "embed" dims split over the client dims), the small client block per
+   client; the shared leaves are gathered at the step's start and their
+   gradients summed over every client rank (reduce-scattered back to
+   each rank's block), and the client blocks aggregate at the kappa0
    boundary (``sync_clients``).
 
 The frozen head (Eq. 12) is an optimizer mask, so the head leaves never
@@ -37,12 +39,11 @@ the edge step's float32 copies of one leaf.
 
 The reference lets GSPMD shard each client's replica over a "model" axis
 (tensor parallelism).  The port's mesh rounds take a "model" dim above 1
-for the dense decoders (``sharding.tensor_parallel``): each rank holds its
+for every family (``sharding.tensor_parallel``): each rank holds its
 block of its client's replica (``sharding.rules.shard_params``), the
 local steps reduce over the "model" group inside the layers, and the edge
 and global aggregation sum each rank's block over the "data" and "pod"
-groups as before.  Every other family raises at model > 1 (ROADMAP §1,
-slice 12).
+groups as before.
 """
 
 from __future__ import annotations
@@ -64,9 +65,10 @@ from repro_torch.models.registry import Model
 from repro_torch.optim import (apply_updates, make_optimizer, masked,
                                zeros_view)
 from repro_torch.sharding.rules import (add_client_axis, as_abstract,
-                                        data_axes, params_specs)
-from repro_torch.sharding.tensor_parallel import (parallel_for,
-                                                  require_tp_ported)
+                                        client_split_dims, data_axes,
+                                        gather_dims, params_specs,
+                                        reduce_scatter_dims)
+from repro_torch.sharding.tensor_parallel import parallel_for
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -288,12 +290,7 @@ def _client_groups(mesh) -> list:
 
 def tensor_parallel(model: Model, mesh):
     """This rank's tensor-parallel block (``sharding.tensor_parallel.
-    Parallel``), or None when the "model" dim is 1.  Above 1 only the
-    dense decoders are ported: any other family raises
-    ``NotImplementedError`` naming ROADMAP §1, slice 12."""
-    if as_abstract(mesh).shape.get("model", 1) == 1:
-        return None
-    require_tp_ported(model.cfg)
+    Parallel``), or None when the "model" dim is 1."""
     return parallel_for(mesh)
 
 
@@ -391,21 +388,27 @@ def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
     client.
 
     params: the client-block leaves carry a leading dim of this rank's
-    clients (``local_clients``; all ``num_clients`` at world size 1), the
-    body and head leaves are one shared copy per rank.  ``fn`` runs one
-    SGD step on the mean over ALL clients of each client's loss under its
-    merged tree (its client block, the shared rest): a loop over this
-    rank's clients, whose shared leaves' gradients are then summed over
-    every client rank; the client leaves' gradients stay on their rank;
-    then the masked update.  ``batch`` leaves are (clients on this rank,
-    ...).  ``sync_clients(params, do_global)`` replaces each client
-    block by the unweighted mean over its pod's clients, or over all
-    clients.  Over a "model" dim above 1 each rank holds its block of
-    every leaf (``tensor_parallel``); the body stays replicated over the
-    client dims (its FSDP layout waits for ROADMAP §1, slice 12)."""
+    clients (``local_clients``; all ``num_clients`` at world size 1) and
+    are whole over "model", as the reference lays them out; the body and
+    head leaves are this rank's block under ``fsdp_tp``, the reference's
+    layout: split over "model" (``tensor_parallel``) and, along their
+    "embed" dims, over the client dims.  ``fn`` gathers those "embed"
+    blocks whole, then runs one SGD step on the mean over ALL clients of
+    each client's loss under its merged tree (its client block, the
+    shared rest): a loop over this rank's clients.  A gathered leaf's
+    gradient is reduce-scattered back to the rank's block (summed over
+    every client rank), a shared leaf held whole over the client dims (a
+    dim that does not divide, or a leaf given whole) has its gradient
+    all-reduced over them, and the client leaves' gradients stay on their
+    rank; then the masked update of each rank's blocks.  ``batch`` leaves
+    are (clients on this rank, ...).  ``sync_clients(params, do_global)``
+    replaces each client block by the unweighted mean over its pod's
+    clients, or over all clients."""
     par = tensor_parallel(model, mesh)
     spec = split_spec_for(model.cfg)
-    client_mask = part_masks(abstract_params(model), spec)["client"]
+    whole = abstract_params(model)
+    fsdp = params_specs(whole, model.axes(), mesh, mode="fsdp_tp")
+    client_mask = part_masks(whole, spec)["client"]
     mine = local_clients(mesh, num_clients)
     groups = _client_groups(mesh)
     shape = as_abstract(mesh).shape
@@ -417,8 +420,11 @@ def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
         if not built:
             built.append(build_optimizer(model, tcfg, params=params))
         opt, mask = built[0]
-        leaves = tree_map(lambda x, m: x.detach().requires_grad_(m),
-                          params, mask)
+        dims = tree_map(lambda c, x, w, sp: [] if c else client_split_dims(
+            tuple(x.shape), tuple(w.shape), sp, mesh), client_mask, params,
+            whole, fsdp)
+        leaves = tree_map(lambda x, dd, m: gather_dims(
+            x.detach(), dd, mesh).requires_grad_(m), params, dims, mask)
         total = torch.zeros((), dtype=torch.float32,
                             device=tree_leaves(params)[0].device)
         for i in range(len(mine)):
@@ -428,14 +434,23 @@ def make_shared_server_step(model: Model, hcfg: HierarchyConfig,
                               remat=tcfg.remat, par=par) / num_clients
             loss.backward()
             total = total + loss.detach()
-        grads = tree_map(lambda t: zeros_view(t) if t.grad is None
-                         else t.grad, leaves)
+
+        def grad(c, t, m, dd):
+            if t.grad is None:          # a frozen leaf: zeros of its block
+                return None
+            if c:
+                return t.grad
+            if dd:                  # a gathered leaf: back to the block
+                return reduce_scatter_dims(t.grad, dd, mesh)
+            g = t.grad
+            for grp in groups:
+                dist.all_reduce(g, group=grp)
+            return g
+
+        grads = tree_map(grad, client_mask, leaves, mask, dims)
+        grads = tree_map(lambda g, x: zeros_view(x) if g is None else g,
+                         grads, params)
         del leaves
-        for c, g, m in zip(tree_leaves(client_mask), tree_leaves(grads),
-                           tree_leaves(mask)):
-            if m and not c:                     # a shared, trained leaf
-                for grp in groups:
-                    dist.all_reduce(g, group=grp)
         for grp in groups:
             dist.all_reduce(total, group=grp)
         upd, opt_state = opt.update(grads, opt_state, params)

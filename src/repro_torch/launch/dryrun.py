@@ -23,10 +23,9 @@ analytic model's, with ``attn_impl="flash"`` (K2 skips the blocks above
 the diagonal and outside the window).
 
 ``run_one``'s ``reduced`` and ``shape`` take an arch's ``reduced()``
-config and a small shape (the tests').  An arch whose tensor parallelism
-is not ported yet fails at model > 1 with ``NotImplementedError``
-(ROADMAP §1, slice 12), which ``--keep-going`` collects as the reference
-collects its failures.
+config and a small shape (the tests').  Every arch traces at a "model"
+dim above 1; ``--keep-going`` collects failures as the reference
+collects its own.
 """
 
 from __future__ import annotations

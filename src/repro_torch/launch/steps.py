@@ -21,8 +21,11 @@ block of each (:func:`rank_args` cuts them from whole values through
 Serving's default ``param_mode="fsdp_tp"`` also shards the "embed" dims
 over the client dims: ``fn`` gathers those leaves (``all_gather`` over
 the client groups) at the step's start, then runs the tensor-parallel
-layers.  A "model" dim above 1 is ported for the dense decoders only;
-any other family raises ``NotImplementedError`` (ROADMAP §1, slice 12).
+layers; so does the shared-server step, whose body and head the
+reference lays out by ``fsdp_tp`` too.  Every family runs at a "model"
+dim above 1.  A decode step gathers the recurrent layers' states (RG-LRU,
+mLSTM, sLSTM) whole over every dim but the batch's before the layers
+run, and writes this rank's block of the new state back after them.
 
 Optimizer states carry their parameter's spec (each rank updates its
 block); the reference lays them out by the client axes alone and lets
@@ -36,8 +39,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import (HierarchyConfig, ModelConfig,
-                                      ShapeConfig, TrainConfig)
+from repro_torch.configs.base import (MLSTM, RGLRU, SLSTM, HierarchyConfig,
+                                      ModelConfig, ShapeConfig, TrainConfig)
 from repro_torch.core.phsfl import (abstract_params, build_optimizer,
                                     make_phsfl_round)
 from repro_torch.launch import input_specs as ispec
@@ -47,9 +50,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.sharding.rules import (as_abstract, data_axes,
                                         gather_params, params_specs,
                                         shard_params, spec_map)
-from repro_torch.sharding.tensor_parallel import (parallel_for,
-                                                  require_tp_ported)
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding.tensor_parallel import parallel_for
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -84,11 +86,6 @@ def _state_specs(state, pspec, lead=()):
     return out
 
 
-def _require_model_dim(cfg: ModelConfig, mesh) -> None:
-    if as_abstract(mesh).shape.get("model", 1) > 1:
-        require_tp_ported(cfg)
-
-
 def _client_gatherer(pspec, mesh):
     """The fsdp leaves' gather over the client dims (identity when no
     leaf is sharded over them)."""
@@ -113,6 +110,56 @@ def _spec_leaves(tree):
             yield from _spec_leaves(v)
     else:
         yield tree
+
+
+class _StateGatherer:
+    """The recurrent layers' decode states (RG-LRU, mLSTM, sLSTM) made
+    whole over every split dim but the batch's (``input_specs.
+    cache_specs`` splits a wide state over "model", the mLSTM carry's
+    rows by its kv-heads rule, and at batch 1 the heads or width over
+    the client dims), and this rank's block of the new state written back
+    in place.  The layers' tensor-parallel forms read and write whole
+    states."""
+
+    def __init__(self, keys, specs, mesh):
+        self.keys, self.specs, self.mesh = keys, specs, mesh
+
+    def __call__(self, cache):
+        if not self.keys:
+            return cache
+        whole = {k: dict(v) for k, v in cache.items()}
+        for (st, b), spec in zip(self.keys, self.specs):
+            whole[st][b] = gather_params(cache[st][b], spec, self.mesh)
+        return whole
+
+    def write_back(self, cache, whole):
+        for (st, b), spec in zip(self.keys, self.specs):
+            block = shard_params(whole[st][b], spec, self.mesh)
+            tree_map(lambda dst, src: dst.copy_(src), cache[st][b], block)
+        return cache
+
+
+def _state_gatherer(cfg: ModelConfig, cache, mesh) -> _StateGatherer:
+    """A :class:`_StateGatherer` over the recurrent layers' cache blocks
+    (``cache``: the :class:`Sharded` tree) whose specs split a dim other
+    than the batch's."""
+    from repro_torch.models.transformer import compute_stages
+    keys, specs = [], []
+    if cfg.encdec is None:
+        kinds = cfg.layer_kinds()
+        for si, st in enumerate(compute_stages(cfg)):
+            batch = 1 if st.which == "scan" else 0
+            for j, lid in enumerate(st.layer_ids):
+                if kinds[lid] not in (RGLRU, MLSTM, SLSTM):
+                    continue
+                block = cache[f"stage{si}"][f"b{j}"]
+                if any(e is not None for sh in tree_leaves(block)
+                       for d, e in enumerate(sh.spec) if d != batch):
+                    keys.append((f"stage{si}", f"b{j}"))
+                    specs.append(tree_map(lambda sh: tuple(
+                        None if d == batch else e
+                        for d, e in enumerate(sh.spec)), block))
+    return _StateGatherer(keys, specs, mesh)
 
 
 # ----------------------------------------------------------- train ---------
@@ -147,9 +194,9 @@ def build_shared_server_train_step(cfg: ModelConfig, shape: ShapeConfig,
                                    mesh, tcfg: TrainConfig | None = None,
                                    hcfg: HierarchyConfig | None = None
                                    ) -> StepBundle:
-    """Beyond-paper shared-server (SFL-V2) step for the same shapes.  The
-    body stays replicated over the client dims (split over "model"
-    only); its FSDP layout waits for ROADMAP §1, slice 12."""
+    """Beyond-paper shared-server (SFL-V2) step for the same shapes, laid
+    out as the reference's: the body and head by ``fsdp_tp``, the client
+    block stacked per client over the client dims and whole otherwise."""
     from repro_torch.core.phsfl import make_shared_server_step
     from repro_torch.core.split import part_masks, split_spec_for
 
@@ -161,12 +208,13 @@ def build_shared_server_train_step(cfg: ModelConfig, shape: ShapeConfig,
 
     shapes = abstract_params(model)
     masks = part_masks(shapes, split_spec_for(cfg))
-    pspec = params_specs(shapes, model.axes(), mesh, mode="tp")
+    pspec = params_specs(shapes, model.axes(), mesh, mode="fsdp_tp")
     lead = ispec._dab(mesh)
 
     def stacked(mask_c, s, sp):
-        if mask_c:  # client block: per-client, split over "model"
-            return Sharded(s.new_empty((C, *s.shape)), (lead, *sp))
+        if mask_c:  # client block: per-client, replicate inner dims
+            return Sharded(s.new_empty((C, *s.shape)),
+                           (lead, *(None,) * s.dim()))
         return Sharded(s, sp)
 
     params = tree_map(stacked, masks["client"], shapes, pspec)
@@ -181,10 +229,7 @@ def build_shared_server_train_step(cfg: ModelConfig, shape: ShapeConfig,
     batch.update(ispec._extras_specs(cfg, (C, micro), shape.seq_len, mesh,
                                      lead))
     return _bundle(step.fn, (params, opt_state, batch), "train",
-                   {"clients": C, "mode": "shared_server",
-                    "body_layout": "split over 'model', replicated over "
-                                   "the client dims (FSDP: ROADMAP §1, "
-                                   "slice 12)"})
+                   {"clients": C, "mode": "shared_server"})
 
 
 # ------------------------------------------------------ prefill / decode ---
@@ -196,7 +241,6 @@ def _serving_params(model, mesh, param_mode: str):
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                        param_mode: str = "fsdp_tp") -> StepBundle:
-    _require_model_dim(cfg, mesh)
     model = build_model(cfg)
     params, pspec = _serving_params(model, mesh, param_mode)
     batch = ispec.prefill_batch_specs(cfg, shape, mesh)
@@ -215,21 +259,22 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                       param_mode: str = "fsdp_tp") -> StepBundle:
-    _require_model_dim(cfg, mesh)
     model = build_model(cfg)
     params, pspec = _serving_params(model, mesh, param_mode)
     tok, extras = ispec.decode_token_specs(cfg, shape, mesh)
     cache = ispec.cache_specs(model, shape, mesh)
     index = Sharded(torch.empty((), dtype=torch.int32, device="meta"), ())
     split = shape.global_batch == 1 and ispec._dab_size(mesh) > 1
-    if split:
-        require_tp_ported(cfg, "a decode cache split by length")
     gather = _client_gatherer(pspec, mesh)
+    states = _state_gatherer(cfg, cache, mesh)
     par = parallel_for(mesh, cache_split=split, cache_len=shape.seq_len)
 
     def decode_fn(params, token, cache, index, positions3=None):
-        return model.decode_step(gather(params), token, cache, int(index),
-                                 positions3=positions3, par=par)
+        whole = states(cache)
+        logits, _ = model.decode_step(gather(params), token, whole,
+                                      int(index), positions3=positions3,
+                                      par=par)
+        return logits, states.write_back(cache, whole)
 
     args = (params, tok, cache, index)
     if extras:

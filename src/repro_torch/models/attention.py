@@ -291,14 +291,21 @@ def attn_apply(p, cfg: ModelConfig, x, *, window: int = 0,
     return _out_proj(p, cfg, out)
 
 
-def cross_kv(p, cfg: ModelConfig, memory):
+def cross_kv(p, cfg: ModelConfig, memory, par=None):
     """Cross-attention k and v (B,S_src,KV,hd) from the encoder's memory
-    (B,S_src,D)."""
+    (B,S_src,D).  ``par``: this rank's block as ``attn_apply`` takes it
+    (``_tp_block``): the kv heads its query heads read, the memory and
+    the whole leaves taking the gradient's sum over the "model" dim."""
+    pick = None
+    if par is not None and par.tp:
+        p, memory, _, _, pick = _tp_block(p, cfg, memory, par)
     k = _proj(memory, p["k"]["w"])
     v = _proj(memory, p["v"]["w"])
     if cfg.attn_bias:
         k = k + p["k"]["b"]
         v = v + p["v"]["b"]
+    if pick is not None:
+        k, v = k[:, :, pick], v[:, :, pick]
     return k, v
 
 
@@ -316,6 +323,21 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def cache_axes() -> dict:
     return {"k": (None, "length", "kv_heads", "head_dim"),
             "v": (None, "length", "kv_heads", "head_dim")}
+
+
+def combine_split(logits, weighted, par):
+    """Softmax attention over keys whose slots are split across the
+    client dims (batch 1, ``par.seq_groups``): the max, the exponent sums
+    and the weighted values (``weighted(e)``, the exponents' sum over
+    this rank's keys against its values), float32, combined by
+    ``all_reduce``.  logits: (..., keys), masked."""
+    m = logits.amax(dim=-1, keepdim=True)
+    for g in par.seq_groups:
+        m = tpm.all_reduce_max(m, g)
+    e = torch.exp(logits - m)
+    state = tpm.all_reduce_sum(torch.cat([weighted(e), e.sum(
+        -1, keepdim=True)], dim=-1), par.seq_groups)
+    return state[..., :-1] / state[..., -1:]
 
 
 def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
@@ -372,9 +394,26 @@ def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
         valid = slots <= index
     kv_valid = valid[None].expand(b, length)
 
+    out = attend_cache(q, ck, cv, kv_valid, cfg, par if tp else None,
+                       par if split else None, softcap)
+    if o_split:
+        return _out_rows(out, cfg, p, par, hl), cache
+    return _out_proj(p, cfg, out), cache
+
+
+def attend_cache(q, ck, cv, kv_valid, cfg: ModelConfig, tp, seq,
+                 softcap: float = 0.0):
+    """One token's query heads q (B,1,Hl,hd) over a cache's keys and
+    values (B,L,KV,hd), masked by ``kv_valid`` (B,L): (B,1,Hl,hd) in
+    q's dtype.  ``tp``: the tensor-parallel block, whose query heads read
+    only some of the kv heads when the cache holds every kv head.
+    ``seq``: the block whose cache slots are split over the client dims
+    (``combine_split``)."""
+    b, _, hl, _ = q.shape
     keys, values = ck, cv
-    if tp and ck.shape[2] == cfg.num_kv_heads and hl < cfg.num_heads:
-        pick = tpm.kv_heads_for(par, cfg.num_heads, cfg.num_kv_heads, hl)
+    if tp is not None and ck.shape[2] == cfg.num_kv_heads \
+            and hl < cfg.num_heads:
+        pick = tpm.kv_heads_for(tp, cfg.num_heads, cfg.num_kv_heads, hl)
         sel = list(range(*pick)) if isinstance(pick, tuple) else pick
         keys, values = ck[:, :, sel], cv[:, :, sel]
     qg = _expand_gqa(q, keys.shape[2])                    # (B,1,KV,G,hd)
@@ -385,20 +424,12 @@ def decode_attend(p, cfg: ModelConfig, x, cache, index: int, *, window: int,
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     logits = logits + _bias(kv_valid)[:, None, None, None, :]
-    if split:
-        m = logits.amax(dim=-1, keepdim=True)
-        for g in par.seq_groups:
-            m = tpm.all_reduce_max(m, g)
-        e = torch.exp(logits - m)
-        acc = torch.einsum("bngqk,bknd->bngqd", e, values.to(torch.float32))
-        state = tpm.all_reduce_sum(torch.cat([acc, e.sum(-1, keepdim=True)],
-                                             dim=-1), par.seq_groups)
-        out = (state[..., :-1] / state[..., -1:]).permute(0, 3, 1, 2, 4)
+    if seq is not None:
+        out = combine_split(logits, lambda e: torch.einsum(
+            "bngqk,bknd->bngqd", e, values.to(torch.float32)), seq)
+        out = out.permute(0, 3, 1, 2, 4)
     else:
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bngqk,bknd->bqngd", probs,
                            values.to(torch.float32))
-    out = out.reshape(b, 1, hl, cfg.head_dim).to(x.dtype)
-    if o_split:
-        return _out_rows(out, cfg, p, par, hl), cache
-    return _out_proj(p, cfg, out), cache
+    return out.reshape(b, 1, hl, cfg.head_dim).to(q.dtype)

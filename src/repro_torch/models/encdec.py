@@ -20,6 +20,14 @@ cast the same way, in both packages).  The reference multiplies float32
 frames into bfloat16 weights, which JAX promotes, so its encoder runs in
 float32 under a bfloat16 config; the port's runs in the config's dtype,
 on K2's bfloat16 path.  In float32 the two are the same arithmetic.
+
+Under tensor parallelism (``par``, ``sharding.tensor_parallel``) the
+encoder's and decoder's self- and cross-attention split by heads and the
+MLPs by width, as in the decoders (``attention.attn_apply``,
+``layers.mlp_apply``); the embedding and the head by vocabulary.
+``src_proj`` ("embed" by "embed") is held whole.  Decode attends over
+the cross cache as over the self cache: the rank's kv heads, and at
+batch 1 its slice of the frames, combined over the client dims.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from repro_torch.models.init_utils import (dense, dense_axes, embedding,
 from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_axes,
                                        mlp_init)
 from repro_torch.models.transformer import logits_from_hidden, remat_wrapper
+from repro_torch.sharding import tensor_parallel as tpm
 from repro_torch.utils.tree import tree_map
 
 
@@ -109,10 +118,24 @@ def axes(cfg: ModelConfig) -> dict:
 
 
 # ------------------------------------------------------------- apply -------
+def _split(p, cfg: ModelConfig, par) -> bool:
+    """Whether an attention block's ``o`` holds this rank's rows."""
+    return (par is not None and par.tp
+            and p["o"]["w"].shape[0] < cfg.num_heads * cfg.head_dim)
+
+
+def _embed(params, cfg: ModelConfig, tokens, par):
+    table = params["embed"]["table"]
+    if par is not None and par.tp and table.shape[0] < cfg.padded_vocab:
+        return tpm.vocab_parallel_embedding(tokens, table, par)
+    return F.embedding(tokens, table)
+
+
 def encode(params, cfg: ModelConfig, source_embeds, *, impl: str = "auto",
-           remat: bool = False, remat_policy: str | None = None):
+           remat: bool = False, remat_policy: str | None = None, par=None):
     """The encoder's memory (B,S_src,D) from the frames (B,S_src,D); one
-    checkpoint per layer under ``remat``."""
+    checkpoint per layer under ``remat``.  ``par``: this rank's
+    tensor-parallel block (module docstring)."""
     w = params["src_proj"]["w"]
     x = source_embeds.to(w.dtype) @ w
 
@@ -120,9 +143,10 @@ def encode(params, cfg: ModelConfig, source_embeds, *, impl: str = "auto",
     def layer(x, p):
         h = apply_norm(p["ln1"], x, cfg.norm)
         x = x + attn_mod.attn_apply(p["attn"], cfg, h, causal=False,
-                                    rope_theta=cfg.rope_theta, impl=impl)
+                                    rope_theta=cfg.rope_theta, impl=impl,
+                                    par=par)
         h = apply_norm(p["ln2"], x, cfg.norm)
-        return x + mlp_apply(p["mlp"], h, cfg.act)
+        return x + mlp_apply(p["mlp"], h, cfg.act, par=par, d_ff=cfg.d_ff)
 
     for i in range(cfg.encdec.num_encoder_layers):
         x = layer(x, _layer(params["encoder"], i))
@@ -130,26 +154,28 @@ def encode(params, cfg: ModelConfig, source_embeds, *, impl: str = "auto",
 
 
 def apply(params, cfg: ModelConfig, batch, *, impl: str = "auto",
-          remat: bool = False, remat_policy: str | None = None):
+          remat: bool = False, remat_policy: str | None = None, par=None):
     """Teacher-forced full forward.  batch: {"source_embeds" (B,S_src,D),
     "tokens" (B,S)}.  Returns (decoder hidden states (B,S,D), aux = 0);
-    one checkpoint per encoder and per decoder layer under ``remat``."""
+    one checkpoint per encoder and per decoder layer under ``remat``.
+    ``par``: this rank's tensor-parallel block (module docstring)."""
     memory = encode(params, cfg, batch["source_embeds"], impl=impl,
-                    remat=remat, remat_policy=remat_policy)
-    x = F.embedding(batch["tokens"], params["embed"]["table"])
+                    remat=remat, remat_policy=remat_policy, par=par)
+    x = _embed(params, cfg, batch["tokens"], par)
 
     @remat_wrapper(remat, remat_policy)
     def layer(x, p):
         h = apply_norm(p["ln1"], x, cfg.norm)
         x = x + attn_mod.attn_apply(p["self"], cfg, h, causal=True,
-                                    rope_theta=cfg.rope_theta, impl=impl)
+                                    rope_theta=cfg.rope_theta, impl=impl,
+                                    par=par)
         h = apply_norm(p["lnx"], x, cfg.norm)
-        kv = attn_mod.cross_kv(p["cross"], cfg, memory)
+        kv = attn_mod.cross_kv(p["cross"], cfg, memory, par=par)
         x = x + attn_mod.attn_apply(p["cross"], cfg, h, causal=False,
                                     rope_theta=0.0, kv_override=kv,
-                                    impl=impl)
+                                    impl=impl, par=par)
         h = apply_norm(p["ln2"], x, cfg.norm)
-        return x + mlp_apply(p["mlp"], h, cfg.act)
+        return x + mlp_apply(p["mlp"], h, cfg.act, par=par, d_ff=cfg.d_ff)
 
     for i in range(cfg.num_layers):
         x = layer(x, _layer(params["decoder"], i))
@@ -171,46 +197,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for part, shape in shapes.items()}
 
 
-def precompute_cross(params, cfg: ModelConfig, memory, dtype=torch.bfloat16):
+def precompute_cross(params, cfg: ModelConfig, memory, dtype=torch.bfloat16,
+                     par=None):
     """The cross-attention cache {"k", "v"} (layers, B, S_src, KV, hd)
-    from the encoder's memory."""
+    from the encoder's memory; ``par``: this rank's kv heads of it."""
     ks, vs = [], []
     for i in range(cfg.num_layers):
         k, v = attn_mod.cross_kv(_layer(params["decoder"]["cross"], i), cfg,
-                                 memory)
+                                 memory, par=par)
         ks.append(k.to(dtype))
         vs.append(v.to(dtype))
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, index: int, *,
-                positions3=None, return_hidden: bool = False):
+                positions3=None, return_hidden: bool = False, par=None):
     """One decoder step over the self cache, written in place, and the
     precomputed cross cache, attended densely.  token: (B,1).  Returns
     (logits (B,1,V), cache), or the final hidden state (B,1,D) in place of
-    the logits with ``return_hidden``."""
-    x = F.embedding(token, params["embed"]["table"])
+    the logits with ``return_hidden``.  ``par``: this rank's heads and
+    vocabulary, and at batch 1 its slices of both caches' lengths."""
+    x = _embed(params, cfg, token, par)
     b = x.shape[0]
     for i in range(cfg.num_layers):
         p = _layer(params["decoder"], i)
         h = apply_norm(p["ln1"], x, cfg.norm)
         y, _ = attn_mod.decode_attend(
             p["self"], cfg, h, _layer(cache["self"], i), index, window=0,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, par=par)
         x = x + y
         h = apply_norm(p["lnx"], x, cfg.norm)
         # cross attention over the fixed encoder memory
         q = attn_mod._proj(h, p["cross"]["q"]["w"])
         if cfg.attn_bias:
             q = q + p["cross"]["q"]["b"]
-        out = attn_mod.dense_attention(
-            q, cache["cross"]["k"][i], cache["cross"]["v"][i], causal=False,
-            window=0, softcap=0.0)
-        x = x + (out.reshape(b, 1, cfg.num_heads * cfg.head_dim)
-                 @ p["cross"]["o"]["w"])
+        ck, cv = cache["cross"]["k"][i], cache["cross"]["v"][i]
+        seq = (par is not None and par.seq_size > 1
+               and ck.shape[1] < cfg.encdec.max_source_len)
+        out = attn_mod.attend_cache(
+            q, ck, cv, torch.ones(ck.shape[:2], dtype=torch.bool,
+                                  device=x.device), cfg, par,
+            par if seq else None)
+        if _split(p["cross"], cfg, par):
+            x = x + attn_mod._out_rows(out, cfg, p["cross"], par,
+                                       q.shape[2])
+        else:
+            x = x + (out.reshape(b, 1, q.shape[2] * cfg.head_dim)
+                     @ p["cross"]["o"]["w"])
         h = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + mlp_apply(p["mlp"], h, cfg.act)
+        x = x + mlp_apply(p["mlp"], h, cfg.act, par=par, d_ff=cfg.d_ff)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, cache
-    return logits_from_hidden(params, cfg, x), cache
+    return logits_from_hidden(params, cfg, x, par), cache

@@ -23,6 +23,18 @@ dtype, and the Switch auxiliary loss in float32.
 
 Traced on fake tensors (the dry run: shapes, no data) the group sizes
 cannot be read: the segments then take an even split of the pairs.
+
+Under tensor parallelism (``par``) the experts split over the "model"
+dim (the rules' "expert" axis; when the count does not divide, their
+"mlp" width splits instead).  Every rank routes every token (the router
+and the auxiliary loss are replicated, their gradients counted once),
+runs its own experts on their contiguous run of the sorted pairs (one
+host read of its group sizes and of the run's start), and combines its
+experts' outputs: the other pairs add zeros.  The ranks' partial outputs
+are summed (``reduce_from_tp``).  The dispatched tokens and the combine
+weights take the gradient's sum over the dim (``copy_to_tp``), since
+each rank's experts see only their pairs.  The shared experts are a
+column- and row-parallel MLP (``layers.mlp_apply``).
 """
 
 from __future__ import annotations
@@ -34,7 +46,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.hopper.dispatch import is_fake
 from repro_torch.models.init_utils import dense, dense_axes, truncated_normal
-from repro_torch.models.layers import activation
+from repro_torch.models.layers import activation, mlp_apply
+from repro_torch.sharding import tensor_parallel as tpm
 
 group_size_reads = 0      # host reads of the group sizes in this process
 
@@ -97,38 +110,67 @@ def route(p, cfg: ModelConfig, flat):
     return top_w, top_e, counts, aux
 
 
-def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None):
-    """x: (B,S,D) -> (out (B,S,D) in x's dtype, aux_loss float32 scalar)."""
+def _local_experts(p, cfg: ModelConfig, par):
+    """(first expert, experts held, whether this rank's expert outputs
+    are partial: its experts or their "mlp" width a block)."""
+    moe = cfg.moe
+    el, f = p["w_gate"].shape[0], p["w_gate"].shape[-1]
+    split = par is not None and par.tp and (el < moe.num_experts
+                                            or f < moe.d_ff_expert)
+    first = par.tp_rank * el if split and el < moe.num_experts else 0
+    return first, el, split
+
+
+def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None,
+              par=None):
+    """x: (B,S,D) -> (out (B,S,D) in x's dtype, aux_loss float32 scalar).
+    ``par``: this rank's tensor-parallel block (module docstring)."""
     global group_size_reads
     moe = cfg.moe
     act = activation(act_name or cfg.act)
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     top_w, top_e, counts, aux = route(p, cfg, flat)
+    first, el, split = _local_experts(p, cfg, par)
+    if split:
+        flat_in = tpm.copy_to_tp(flat, par)
+        top_w = tpm.copy_to_tp(top_w, par)
+    else:
+        flat_in = flat
 
     # ---- sort token-expert pairs by expert (stable, as jnp.argsort) ----
     flat_e = top_e.reshape(-1)                                  # (N*K,)
+    nk = flat_e.numel()
     order = torch.argsort(flat_e, stable=True)
+    if is_fake(counts):
+        # tracing without data (the dry run): an even split of the pairs
+        q, r = divmod(nk, moe.num_experts)
+        even = [q + (e < r) for e in range(moe.num_experts)]
+        start, sizes = sum(even[:first]), even[first:first + el]
+    else:
+        # this rank's experts' run of the sorted pairs: its start and
+        # sizes in one host read
+        got = torch.cat([counts[:first].sum()[None],
+                         counts[first:first + el]]).tolist()
+        start, sizes = got[0], got[1:]
+        group_size_reads += 1
+    stop = start + sum(sizes)
     # flat[order // K], as a permutation of the K-fold repeated rows: its
     # backward scatters unique indices and sums the K copies of a token in
     # a fixed order (a gather of repeated rows accumulates in thread order)
-    xs = flat.repeat_interleave(moe.top_k, 0)[order]            # (N*K, D)
-    if is_fake(counts):
-        # tracing without data (the dry run): an even split of the pairs
-        q, r = divmod(flat_e.numel(), moe.num_experts)
-        sizes = [q + (e < r) for e in range(moe.num_experts)]
-    else:
-        sizes = counts.tolist()
-        group_size_reads += 1
+    xs = flat_in.repeat_interleave(moe.top_k, 0)[order[start:stop]]
 
     # ---- grouped matmuls, one expert's segment at a time ----
-    segs, start = [], 0
+    segs, pos = [], 0
     for e, g in enumerate(sizes):
         if g:
-            xe = xs[start:start + g]
+            xe = xs[pos:pos + g]
             h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
             segs.append(h @ p["w_down"][e])
-            start += g
+            pos += g
+    if start or stop < nk:          # the other ranks' pairs add zeros
+        zero = lambda n: xs.new_zeros((n, d))  # noqa: E731
+        segs = [zero(start), *segs, zero(nk - stop)]
     y = torch.cat(segs)                                         # (N*K, D)
 
     # ---- combine: back to (N, K, D) by the inverse permutation ----
@@ -139,9 +181,11 @@ def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None):
     out = yk[:, 0] * wk[:, 0, None]
     for j in range(1, moe.top_k):
         out = out + yk[:, j] * wk[:, j, None]
+    if split:
+        out = tpm.reduce_from_tp(out, par)
 
     if moe.num_shared_experts:
-        sh = p["shared"]
-        hs = act(flat @ sh["gate"]["w"]) * (flat @ sh["up"]["w"])
-        out = out + hs @ sh["down"]["w"]
+        fs = moe.d_ff_shared * moe.num_shared_experts
+        out = out + mlp_apply(p["shared"], flat, act_name or cfg.act,
+                              par=par, d_ff=fs)
     return out.reshape(b, s, d).to(x.dtype), aux.to(torch.float32)

@@ -1,5 +1,7 @@
 """Unified Model interface over the zoo, decoder LM or encoder-decoder
-(``repro.models.registry``)."""
+(``repro.models.registry``).  Every family's ``apply``, ``loss``,
+``decode_step`` and ``logits`` take ``par=``, this rank's
+tensor-parallel block (``sharding.tensor_parallel``)."""
 
 from __future__ import annotations
 
@@ -35,19 +37,15 @@ def build_model(cfg: ModelConfig) -> Model:
     def axes():
         return mod.axes(cfg)
 
-    def _par(par):
-        """The tensor-parallel block reaches the decoders only."""
-        return {} if par is None else {"par": par}
-
     def apply(params, batch, *, impl="auto", remat=False, remat_policy=None,
               par=None):
         return mod.apply(params, cfg, batch, impl=impl, remat=remat,
-                         remat_policy=remat_policy, **_par(par))
+                         remat_policy=remat_policy, par=par)
 
     def loss(params, batch, *, impl="auto", remat=False, remat_policy=None,
              par=None):
         hidden, aux = mod.apply(params, cfg, batch, impl=impl, remat=remat,
-                                remat_policy=remat_policy, **_par(par))
+                                remat_policy=remat_policy, par=par)
         ce = tf_mod.lm_loss(params, cfg, hidden, batch["labels"], par=par)
         if cfg.moe is not None:
             ce = ce + cfg.moe.router_aux_loss * aux
@@ -61,7 +59,7 @@ def build_model(cfg: ModelConfig) -> Model:
                     return_hidden=False, par=None):
         return mod.decode_step(params, cfg, token, cache, index,
                                positions3=positions3,
-                               return_hidden=return_hidden, **_par(par))
+                               return_hidden=return_hidden, par=par)
 
     def logits(params, hidden, par=None):
         return tf_mod.logits_from_hidden(params, cfg, hidden, par)

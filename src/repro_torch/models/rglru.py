@@ -20,6 +20,16 @@ float32 copies of the gate weights; ``jax.nn.softplus`` is
 ``logaddexp(x, 0)`` (``torch.logaddexp``, not ``F.softplus``, which
 switches to x above 20); ``jax.nn.gelu`` is the tanh form; h returns to
 x's dtype before the gate product.
+
+Under tensor parallelism (``par``) the width splits over the "model" dim:
+``in_x``, ``in_gate``, ``conv``, the gate biases, ``lam`` and ``out``'s
+rows by width, ``w_a`` and ``w_x`` by rows only.  A rank's block of u
+against its rows of ``w_a`` / ``w_x`` is a partial sum of the whole gate
+input: the sums are reduce-scattered to the rank's width
+(``tensor_parallel.reduce_scatter_to_tp``, whose gradient gathers them
+back), K4 runs on that width, and ``out``'s partial product is summed.
+Decode reads and writes the whole state (the step gathers a split one),
+the rank's width of it computed here and gathered whole.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from repro_torch.models.init_utils import (dense, dense_axes,
                                            truncated_normal)
 from repro_torch.models.layers import activation
 from repro_torch.models.xlstm import causal_conv1d
+from repro_torch.sharding import tensor_parallel as tpm
 
 _C = 8.0  # the paper's fixed scalar c in a_t = exp(-c * softplus(Lambda) * r_t)
 
@@ -85,11 +96,19 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _gates(p, u):
-    """log_a (B,S,W) and the gated input b_t of the recurrence, float32."""
+def _gates(p, u, par=None):
+    """log_a (B,S,W) and the gated input b_t of the recurrence, float32.
+    With ``par`` u is this rank's width block and ``w_a`` / ``w_x`` its
+    rows: the products are summed over the "model" dim down to its
+    width."""
     uf = u.to(torch.float32)
-    r = torch.sigmoid(uf @ p["w_a"]["w"].to(torch.float32) + p["b_a"])
-    i = torch.sigmoid(uf @ p["w_x"]["w"].to(torch.float32) + p["b_x"])
+    ga = uf @ p["w_a"]["w"].to(torch.float32)
+    gx = uf @ p["w_x"]["w"].to(torch.float32)
+    if par is not None:
+        ga, gx = tpm.reduce_scatter_to_tp(torch.stack([ga, gx]), par
+                                          ).unbind(0)
+    r = torch.sigmoid(ga + p["b_a"])
+    i = torch.sigmoid(gx + p["b_x"])
     log_a = -_C * _softplus(p["lam"]) * r                  # (B,S,W), <= 0
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-9)) * (i * uf)
@@ -97,31 +116,43 @@ def _gates(p, u):
 
 
 def rglru_block_apply(p, cfg: ModelConfig, x, *, cache=None, index=None,
-                      impl: str = "auto"):
+                      impl: str = "auto", par=None):
     """Full recurrent sublayer: proj -> conv -> RG-LRU -> gated out proj.
     x: (B,S,D).
 
     cache: None (a full-sequence forward, through K4 with
     ``impl="auto"``) or the layer's decode cache, written in place (one
-    token).  Returns (out, cache)."""
+    token).  Returns (out, cache).  ``par``: this rank's width (module
+    docstring)."""
     if impl not in ("auto", "dense"):
         raise ValueError(f"unknown RG-LRU impl {impl!r}; use 'auto' (the "
                          f"kernel on the card) or 'dense'")
+    wl = p["in_x"]["w"].shape[1]
+    tp = par if par is not None and par.tp and wl < _width(cfg) else None
+    cols = slice(tp.tp_rank * wl, (tp.tp_rank + 1) * wl) if tp else \
+        slice(None)
+    x = tpm.copy_to_tp(x, tp)
     xb = x @ p["in_x"]["w"]
     gate = activation("gelu")(x @ p["in_gate"]["w"])      # the tanh form
-    conv_state = cache["conv"] if cache is not None else None
+    conv_state = cache["conv"][..., cols] if cache is not None else None
     u, conv_state = causal_conv1d(xb, p["conv"], conv_state)
-    log_a, b = _gates(p, u)
+    log_a, b = _gates(p, u, tp)
     if cache is not None:
-        h = torch.exp(log_a[:, 0]) * cache["h"] + b[:, 0]
+        h = torch.exp(log_a[:, 0]) * cache["h"][:, cols] + b[:, 0]
+        if tp is not None:          # the whole state from the ranks' widths
+            conv_state = tpm.all_gather_dim(conv_state, tp.tp_group, -1)
+            h_all = tpm.all_gather_dim(h, tp.tp_group, -1)
+        else:
+            h_all = h
         cache["conv"].copy_(conv_state)
-        cache["h"].copy_(h)
+        cache["h"].copy_(h_all)
         h = h[:, None]
     elif impl == "auto":
-        h = rglru_scan(log_a, b, log_a.new_zeros((x.shape[0], _width(cfg))))
+        h = rglru_scan(log_a, b, log_a.new_zeros((x.shape[0], wl)))
     else:
         h = rglru_scan_assoc(log_a, b)
-    return (h.to(x.dtype) * gate) @ p["out"]["w"], cache
+    return tpm.reduce_from_tp((h.to(x.dtype) * gate) @ p["out"]["w"],
+                              tp), cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, device="cpu") -> dict:

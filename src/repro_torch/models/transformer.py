@@ -21,11 +21,14 @@ one checkpoint per repeat of a scan stage (a whole pattern period) and
 one per lead or tail layer (``remat_wrapper``); ``lm_loss`` keeps its
 own per-chunk recompute.
 
-Tensor parallelism (``par``, ``sharding.tensor_parallel``; the dense
-decoders): each rank holds its block of every leaf; the embedding and
-the head are split by vocabulary (the embed scale applies after the
-reduce; the logits stay split; the loss's log-sum-exp is reduced over
-the "model" dim), attention and the MLP by heads and width.
+Tensor parallelism (``par``, ``sharding.tensor_parallel``; every
+family): each rank holds its block of every leaf; the embedding and the
+head are split by vocabulary (the embed scale applies after the reduce;
+the logits stay split; the loss's log-sum-exp is reduced over the
+"model" dim), attention, MLA and the MLP by heads and width, the MoE by
+experts, the RG-LRU by width and the xLSTM blocks as ``models.xlstm``
+sets out.  The MoE's auxiliary loss is computed whole on every rank and
+counted once.
 """
 
 from __future__ import annotations
@@ -201,7 +204,7 @@ def layer_axes(cfg: ModelConfig, layer_id: int) -> dict:
 def _ffn(p, cfg: ModelConfig, h, par=None):
     """The layer's FFN: (y, MoE aux loss, or None for a dense MLP)."""
     if "moe" in p:
-        return moe_mod.moe_apply(p["moe"], cfg, h)
+        return moe_mod.moe_apply(p["moe"], cfg, h, par=par)
     d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else cfg.d_ff
     return mlp_apply(p["mlp"], h, cfg.act, par=par, d_ff=d_ff), None
 
@@ -214,15 +217,17 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     kernels on the card, "dense" the plain versions."""
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == SLSTM:
-        return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h)[0], None
+        return x + xlstm_mod.slstm_block_apply(p["block"], cfg, h,
+                                               par=par)[0], None
     if kind == MLSTM:
         return x + xlstm_mod.mlstm_block_apply(
-            p["block"], cfg, h, impl=impl)[0], None
+            p["block"], cfg, h, impl=impl, par=par)[0], None
     if kind == MLA_ATTN:
         x = x + mla_mod.mla_apply(p["mla"], cfg, h, positions=positions,
-                                  impl=impl)
+                                  impl=impl, par=par)
     elif kind == RGLRU:
-        x = x + rglru_mod.rglru_block_apply(p["rec"], cfg, h, impl=impl)[0]
+        x = x + rglru_mod.rglru_block_apply(p["rec"], cfg, h, impl=impl,
+                                            par=par)[0]
     else:
         x = x + attn_mod.attn_apply(
             p["attn"], cfg, h, window=_window(cfg, kind),
@@ -241,13 +246,14 @@ def decode_layer(p, cfg: ModelConfig, kind: str, x, cache, index: int, *,
     if kind in XLSTM_KINDS:
         fn = (xlstm_mod.slstm_block_apply if kind == SLSTM
               else xlstm_mod.mlstm_block_apply)
-        y, cache = fn(p["block"], cfg, h, cache=cache, index=index)
+        y, cache = fn(p["block"], cfg, h, cache=cache, index=index, par=par)
         return x + y, cache
     if kind == MLA_ATTN:
-        y, cache = mla_mod.mla_decode_attend(p["mla"], cfg, h, cache, index)
+        y, cache = mla_mod.mla_decode_attend(p["mla"], cfg, h, cache, index,
+                                             par=par)
     elif kind == RGLRU:
         y, cache = rglru_mod.rglru_block_apply(p["rec"], cfg, h, cache=cache,
-                                               index=index)
+                                               index=index, par=par)
     else:
         y, cache = attn_mod.decode_attend(
             p["attn"], cfg, h, cache, index, window=_window(cfg, kind),

@@ -22,6 +22,28 @@ Casts follow the reference: k is divided by sqrt(dh) in the model dtype;
 the gates come from the float32 ``conv_act`` against float32 gate
 weights; h returns in q's dtype before the per-head RMSNorm; the sLSTM
 cell computes in float32.
+
+Under tensor parallelism (``par``) the blocks keep the reference's
+layout and move data inside the layer:
+
+- mLSTM: ``up`` packs ``[x_m ; z]`` into one matrix whose contiguous
+  column block is not a rank's (x_m, z) pair, so its output is gathered
+  over the "model" dim and each rank takes its block of x_m and of z
+  (``conv``'s and ``down``'s block).  ``q``, ``k``, ``v`` and the gates
+  split by rows only: a rank's products are partial sums.  When the heads
+  divide the dim they are reduce-scattered to the rank's heads and K3
+  runs on those (the per-head norm's scale takes the gradient's sum);
+  otherwise they are summed whole, every rank runs every head, and keeps
+  its block of h.
+- sLSTM: ``w``'s column block is whole heads of the head-major [i f z o]
+  gates when the heads divide the dim; a rank then runs the recurrence on
+  its heads (its rows of ``r`` and ``b``) and the hidden states are
+  gathered.  Otherwise its block is part of a head's gates: W x is
+  gathered and every rank runs every head.  The MLP is column- and
+  row-parallel where its width divides.
+
+Decode reads and writes whole states (the step gathers a split one); a
+rank computes its heads' part and gathers it whole.
 """
 
 from __future__ import annotations
@@ -38,6 +60,7 @@ from repro_torch.hopper.mlstm_chunk.ref import (  # noqa: F401 (re-exported)
 from repro_torch.models.init_utils import (dense, dense_axes, norm,
                                            norm_axes, truncated_normal)
 from repro_torch.models.layers import activation, apply_norm
+from repro_torch.sharding import tensor_parallel as tpm
 
 
 # =============================================================== mLSTM ======
@@ -108,31 +131,91 @@ def _mlstm_heads(p, cfg: ModelConfig, x_m, conv_state=None):
 
 
 def mlstm_block_apply(p, cfg: ModelConfig, x, *, cache=None, index=None,
-                      impl: str = "auto"):
+                      impl: str = "auto", par=None):
     """Full mLSTM residual block.  x: (B,S,D).
 
     cache: None (a full-sequence forward: the chunkwise form, through K3
     with ``impl="auto"``) or the layer's decode cache, written in place.
-    Returns (out, cache)."""
+    Returns (out, cache).  ``par``: this rank's block (module
+    docstring)."""
     if impl not in ("auto", "dense"):
         raise ValueError(f"unknown mLSTM impl {impl!r}; use 'auto' (the "
                          f"kernel on the card) or 'dense'")
     di = int(cfg.d_model * cfg.xlstm.proj_factor_mlstm)
+    if par is not None and par.tp and p["conv"].shape[-1] < di:
+        return _mlstm_block_tp(p, cfg, x, cache, impl, par)
     up = x @ p["up"]["w"]
     x_m, z = up[..., :di], up[..., di:]
     conv_state = cache["conv"] if cache is not None else None
     q, k, v, li, lf, conv_state = _mlstm_heads(p, cfg, x_m, conv_state)
+    h = _mlstm_core(q, k, v, li, lf, cache, impl)
     if cache is not None:
-        h, _ = mlstm_step(q, k, v, li, lf, cache["carry"])
         cache["conv"].copy_(conv_state)
-    elif impl == "auto":
-        h = mlstm_chunk(q, k, v, li, lf)
-    else:
-        h, _ = mlstm_chunkwise(q, k, v, li, lf)
     h = apply_norm(p["out_norm"], h, "rmsnorm")            # per-head norm
     b, s = x.shape[:2]
     h = h.reshape(b, s, di)
     return (h * F.silu(z)) @ p["down"]["w"], cache
+
+
+def _mlstm_core(q, k, v, li, lf, cache, impl: str, heads=slice(None)):
+    """The cell over q/k/v (B,S,h,dh): the decode step on the carry's
+    ``heads`` (in place), or the chunkwise form."""
+    if cache is not None:
+        h, _ = mlstm_step(q, k, v, li, lf,
+                          tuple(t[:, heads] for t in cache["carry"]))
+        return h
+    if impl == "auto":
+        return mlstm_chunk(q, k, v, li, lf)
+    return mlstm_chunkwise(q, k, v, li, lf)[0]
+
+
+def _mlstm_block_tp(p, cfg: ModelConfig, x, cache, impl: str, par):
+    """The mLSTM block on this rank's block of di (module docstring)."""
+    nh = cfg.xlstm.num_heads
+    di = int(cfg.d_model * cfg.xlstm.proj_factor_mlstm)
+    dh = di // nh
+    dl = p["conv"].shape[-1]
+    r = par.tp_rank
+    mine = slice(r * dl, (r + 1) * dl)
+    b, s = x.shape[:2]
+    x = tpm.copy_to_tp(x, par)
+    up = tpm.gather_from_tp(x @ p["up"]["w"], par)         # (B,S,2di)
+    x_m, z = up[..., mine], up[..., di + r * dl:di + (r + 1) * dl]
+    conv_state = cache["conv"][..., mine] if cache is not None else None
+    conv_out, conv_state = causal_conv1d(x_m, p["conv"], conv_state)
+    conv_act = F.silu(conv_out)
+    # partial sums over the rank's rows of q, k, v and the gates
+    qkv = torch.stack([conv_act @ p["q"]["w"], conv_act @ p["k"]["w"],
+                       x_m @ p["v"]["w"]])                 # (3,B,S,di)
+    act32 = conv_act.to(torch.float32)
+    gates = torch.stack([act32 @ p["i_gate"]["w"],
+                         act32 @ p["f_gate"]["w"]])        # (2,B,S,H)
+    if nh % par.tp_size == 0:       # whole heads a rank: its heads alone
+        hl = nh // par.tp_size
+        heads = slice(r * hl, (r + 1) * hl)
+        qkv = tpm.reduce_scatter_to_tp(qkv, par)
+        gates = tpm.reduce_scatter_to_tp(gates, par)
+        norm = {"scale": tpm.copy_to_tp(p["out_norm"]["scale"], par)}
+    else:                           # every head on every rank
+        hl, heads = nh, slice(None)
+        qkv = tpm.reduce_from_tp(qkv, par)
+        gates = tpm.reduce_from_tp(gates, par)
+        norm = p["out_norm"]
+    q, k, v = (t.reshape(b, s, hl, dh) for t in qkv.unbind(0))
+    # sqrt(dh) as a Python scalar: the division rounds in the model dtype
+    k = k / math.sqrt(dh)
+    li, lf = gates[0], F.logsigmoid(gates[1])
+    h = _mlstm_core(q, k, v, li, lf, cache, impl, heads)
+    h = apply_norm(norm, h, "rmsnorm").reshape(b, s, hl * dh)
+    if hl == nh:
+        h = tpm.copy_to_tp(h, par)[..., mine]
+    if cache is not None:           # the whole state from the ranks' blocks
+        cache["conv"].copy_(tpm.all_gather_dim(conv_state, par.tp_group,
+                                               -1))
+        if hl < nh:
+            for t in cache["carry"]:
+                t.copy_(tpm.all_gather_dim(t[:, heads], par.tp_group, 1))
+    return tpm.reduce_from_tp((h * F.silu(z)) @ p["down"]["w"], par), cache
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device="cpu") -> dict:
@@ -200,6 +283,23 @@ def _slstm_cell(r32, wx_t, state):
     return c_new, n_new, h_new, m_new
 
 
+def _slstm_loop(r32, wx, state, b: int, s: int, h: int, dh: int,
+                device):
+    """The recurrence over wx (B,S,h,4dh) float32 from ``state`` (or
+    zeros): (h (B,S,h*dh) float32, final state)."""
+    if state is None:
+        z = lambda: torch.zeros((b, h, dh), dtype=torch.float32,  # noqa: E731
+                                device=device)
+        state = (z(), z(), z(), torch.full((b, h, dh), NEG_BIG,
+                                           dtype=torch.float32,
+                                           device=device))
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(r32, wx[:, t], state)
+        hs.append(state[2])
+    return torch.stack(hs, dim=1).reshape(b, s, h * dh), state
+
+
 def slstm_scan(p, cfg: ModelConfig, x, state=None):
     """x: (B,S,D) -> (h (B,S,D) in x's dtype, final state).  A Python
     loop over S: the recurrence feeds h back into the gates."""
@@ -207,36 +307,76 @@ def slstm_scan(p, cfg: ModelConfig, x, state=None):
     h = cfg.xlstm.num_heads
     dh = d // h
     wx = (x @ p["w"]["w"]).to(torch.float32) + p["b"]
-    wx = wx.reshape(b, s, h, 4 * dh)
-    if state is None:
-        z = lambda: x.new_zeros((b, h, dh), dtype=torch.float32)  # noqa: E731
-        state = (z(), z(), z(), x.new_full((b, h, dh), NEG_BIG,
-                                           dtype=torch.float32))
     # the reference promotes the bfloat16 r to float32 in the product
-    r32 = p["r"].to(torch.float32)
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(r32, wx[:, t], state)
-        hs.append(state[2])
-    out = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    return out, state
+    out, state = _slstm_loop(p["r"].to(torch.float32),
+                             wx.reshape(b, s, h, 4 * dh), state, b, s, h,
+                             dh, x.device)
+    return out.to(x.dtype), state
 
 
-def slstm_block_apply(p, cfg: ModelConfig, x, *, cache=None, index=None):
+def _slstm_tp(p, cfg: ModelConfig, x, state, par):
+    """The sLSTM's recurrence with ``w`` split by columns (module
+    docstring): (normed hidden states (B,S,D), the final state of the
+    rank's heads, those heads)."""
+    b, s, d = x.shape
+    nh = cfg.xlstm.num_heads
+    dh = d // nh
+    x = tpm.copy_to_tp(x, par)
+    wx = x @ p["w"]["w"]                                   # (B,S,4d/M)
+    if nh % par.tp_size == 0:       # whole heads a rank: its heads alone
+        hl = nh // par.tp_size
+        heads = slice(par.tp_rank * hl, (par.tp_rank + 1) * hl)
+        cols = wx.shape[-1]
+        bias = tpm.copy_to_tp(p["b"], par)[par.tp_rank * cols:
+                                           (par.tp_rank + 1) * cols]
+        r32 = tpm.copy_to_tp(p["r"], par)[heads].to(torch.float32)
+        norm = {"scale": tpm.copy_to_tp(p["out_norm"]["scale"], par)}
+    else:                           # part of a head's gates: every head
+        hl, heads = nh, slice(None)
+        wx = tpm.gather_from_tp(wx, par, summed=False)
+        bias, r32, norm = p["b"], p["r"].to(torch.float32), p["out_norm"]
+    wx = (wx.to(torch.float32) + bias).reshape(b, s, hl, 4 * dh)
+    if state is not None:
+        state = tuple(t[:, heads] for t in state)
+    hid, state = _slstm_loop(r32, wx, state, b, s, hl, dh, x.device)
+    hh = apply_norm(norm, hid.to(x.dtype).reshape(b, s, hl, dh),
+                    "rmsnorm").reshape(b, s, hl * dh)
+    if hl < nh:
+        hh = tpm.gather_from_tp(hh, par, summed=False)
+    return hh, state, heads
+
+
+def slstm_block_apply(p, cfg: ModelConfig, x, *, cache=None, index=None,
+                      par=None):
     """sLSTM residual block with its post-up-projection MLP.  cache: None
     or the layer's decode cache, whose state is written in place.
-    Returns (out, cache)."""
+    Returns (out, cache).  ``par``: this rank's block (module
+    docstring)."""
     b, s, d = x.shape
-    hid, state = slstm_scan(p, cfg, x,
-                            None if cache is None else cache["state"])
-    if cache is not None:
-        for dst, src in zip(cache["state"], state):
-            dst.copy_(src)
-    hh = apply_norm(p["out_norm"], hid.reshape(b, s, cfg.xlstm.num_heads,
-                                               -1), "rmsnorm").reshape(b, s, d)
+    tp = par if (par is not None and par.tp
+                 and p["w"]["w"].shape[1] < 4 * d) else None
+    if tp is None:
+        hid, state = slstm_scan(p, cfg, x,
+                                None if cache is None else cache["state"])
+        if cache is not None:
+            for dst, src in zip(cache["state"], state):
+                dst.copy_(src)
+        hh = apply_norm(p["out_norm"], hid.reshape(
+            b, s, cfg.xlstm.num_heads, -1), "rmsnorm").reshape(b, s, d)
+    else:
+        hh, state, heads = _slstm_tp(p, cfg, x, None if cache is None
+                                     else cache["state"], tp)
+        if cache is not None:       # the whole state from the ranks' heads
+            for dst, src in zip(cache["state"], state):
+                dst.copy_(src if heads == slice(None) else
+                          tpm.all_gather_dim(src, tp.tp_group, 1))
     gelu = activation("gelu")                  # jax.nn.gelu's tanh form
+    mlp = (par is not None and par.tp
+           and p["up"]["w"].shape[1] < int(d * cfg.xlstm.proj_factor_slstm))
+    if mlp:
+        hh = tpm.copy_to_tp(hh, par)
     y = (gelu(hh @ p["up_gate"]["w"]) * (hh @ p["up"]["w"])) @ p["down"]["w"]
-    return y, cache
+    return tpm.reduce_from_tp(y, par if mlp else None), cache
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device="cpu") -> dict:

@@ -183,6 +183,8 @@ def _is_spec(x) -> bool:
 def _spec_map(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _spec_map(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, tuple):         # a recurrent cache's carry
+        return tuple(_spec_map(fn, t, s) for t, s in zip(tree, specs))
     if not _is_spec(specs):
         raise ValueError(f"leaf meets spec subtree {specs!r}")
     return fn(tree, specs)
@@ -233,3 +235,37 @@ def gather_params(tree, spec_tree, mesh):
         return x
 
     return _spec_map(whole, tree, spec_tree)
+
+
+def client_split_dims(local_shape: tuple, whole_shape: tuple, spec: tuple,
+                      mesh) -> list:
+    """The (dim, entry) pairs of a leaf that hold this rank's block over
+    the client dims ("pod" / "data"; ``fsdp_tp``'s "embed" dims): those
+    whose spec entry names client axes only and whose local size is
+    smaller than the whole's.  A leaf given whole yields none."""
+    clients = set(data_axes(mesh))
+    return [(d, e) for d, e in enumerate(spec)
+            if e is not None and set(_entry_axes(e)) <= clients
+            and local_shape[d] < whole_shape[d]]
+
+
+def gather_dims(x, dims: list, mesh):
+    """``x`` whole along ``dims`` (``client_split_dims``' pairs):
+    ``all_gather`` over each entry's axes, innermost first, as
+    :func:`gather_params` (outside autograd)."""
+    from repro_torch.sharding.tensor_parallel import all_gather_dim
+    for d, entry in dims:
+        for a in reversed(_entry_axes(entry)):
+            x = all_gather_dim(x, mesh.get_group(a), d)
+    return x
+
+
+def reduce_scatter_dims(g, dims: list, mesh):
+    """The adjoint of :func:`gather_dims`: this rank's block of ``g``
+    summed over the same axes (``reduce_scatter``, in the reverse
+    order).  The gradient of a gathered leaf."""
+    from repro_torch.sharding.tensor_parallel import reduce_scatter_dim
+    for d, entry in reversed(dims):
+        for a in _entry_axes(entry):
+            g = reduce_scatter_dim(g, mesh.get_group(a), d)
+    return g.contiguous()

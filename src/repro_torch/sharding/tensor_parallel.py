@@ -7,18 +7,29 @@ the layers reduce over the "model" group where a block's result is
 partial:
 
 - :func:`copy_to_tp`: identity forward, ``all_reduce`` of the gradient
-  backward.  It stands at the input of a column-parallel block (q/k/v,
-  gate/up, the LM head) and on each replicated leaf such a block uses
-  (the q/k norms, the k/v projections when the kv heads do not divide
-  the dim), whose gradients are each rank's part of the sum.
+  backward.  It stands where a replicated tensor enters a split block
+  (the input of q/k/v, gate/up, the LM head; MLA's latents; the MoE's
+  dispatched tokens and combine weights) and on each replicated leaf such
+  a block uses (the q/k norms, the k/v projections when the kv heads do
+  not divide the dim), whose gradients are each rank's part of the sum.
 - :func:`reduce_from_tp`: ``all_reduce`` forward, identity backward, after
-  a row-parallel product (o, down) and the vocab-parallel embedding.
+  a row-parallel product (o, down, the experts' combine) and the
+  vocab-parallel embedding.
+- :func:`reduce_scatter_to_tp`: the sum over the group, of which a rank
+  keeps its block of one dim; its gradient is the ``all_gather``.  The
+  RG-LRU's gates and the mLSTM's q/k/v and gates, whose weights split by
+  rows, take it down to the rank's width or heads.
+- :func:`gather_from_tp`: ``all_gather`` along a dim; the gradient is
+  the rank's block of the summed gradient (``reduce_scatter``) when the
+  ranks use the whole in parts (the mLSTM's packed ``[x_m ; z]``), or its
+  block alone (``summed=False``) when each rank uses all of it alike
+  (the sLSTM's hidden state before its MLP).
 - :func:`vocab_parallel_embedding` and :func:`vocab_parallel_loss_sum`:
   the embedding rows and the head's columns split by vocabulary.
 
-``all_reduce`` is the only collective (sum and, for the log-sum-exp and
-the split decode cache, max): gloo takes CUDA tensors for it when ranks
-share a card, and the hand-written kernels get plain local tensors.
+``all_reduce``, ``all_gather`` and ``reduce_scatter`` are the
+collectives: gloo takes CUDA tensors for each when ranks share a card,
+and the hand-written kernels get plain local tensors.
 
 Which leaves a rank holds whole and which in part it reads from their
 shapes against the config: the rules shard a dim only when it divides,
@@ -37,10 +48,6 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, ModelConfig
-
-SLICE_12 = "ROADMAP §1, slice 12"
 
 
 @dataclass(frozen=True)
@@ -63,23 +70,6 @@ class Parallel:
     @property
     def tp(self) -> bool:
         return self.tp_size > 1
-
-
-def tp_ported(cfg: ModelConfig) -> bool:
-    """Whether the port's tensor parallelism covers ``cfg``: the dense
-    decoders (GQA attention, a dense gated MLP; M-RoPE and patch
-    embeddings included)."""
-    return (cfg.moe is None and cfg.mla is None and cfg.encdec is None
-            and set(cfg.layer_kinds()) <= {ATTN, LOCAL_ATTN})
-
-
-def require_tp_ported(cfg: ModelConfig, what: str = "a 'model' mesh dim "
-                      "larger than 1") -> None:
-    if not tp_ported(cfg):
-        raise NotImplementedError(
-            f"{what} (tensor parallelism) is ported for the dense decoders "
-            f"only; {cfg.name} (family {cfg.family!r}: MoE, MLA, RG-LRU, "
-            f"xLSTM or encoder-decoder layers) waits for {SLICE_12}")
 
 
 def parallel_for(mesh, *, cache_split: bool = False,
@@ -133,6 +123,52 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+def all_gather_dim(x, group, dim: int):
+    """The ranks' blocks of ``group`` joined along ``dim``, in rank
+    order (outside autograd)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(x, group, dim: int):
+    """This rank's block along ``dim`` of the sum over ``group`` (outside
+    autograd): ``all_gather_dim``'s adjoint."""
+    xt = x.movedim(dim, 0).contiguous()
+    parts = list(xt.chunk(dist.get_world_size(group)))
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return out.movedim(0, dim)
+
+
+class _ReduceScatterTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, rank, summed):
+        ctx.group, ctx.dim, ctx.rank, ctx.summed = group, dim, rank, summed
+        ctx.size = x.shape[dim]
+        return all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = reduce_scatter_dim(g, ctx.group, ctx.dim)
+        else:
+            g = g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size)
+        return g.contiguous(), None, None, None, None
+
+
 def copy_to_tp(x, par: Parallel | None):
     """Identity; the gradient is summed over the "model" group."""
     if par is None or not par.tp:
@@ -145,6 +181,27 @@ def reduce_from_tp(x, par: Parallel | None):
     if par is None or not par.tp:
         return x
     return _ReduceFromTP.apply(x, par.tp_group)
+
+
+def reduce_scatter_to_tp(x, par: Parallel | None, dim: int = -1):
+    """This rank's block along ``dim`` of the sum over the "model" group;
+    the gradient is gathered whole (``all_gather``)."""
+    if par is None or not par.tp:
+        return x
+    return _ReduceScatterTP.apply(x, par.tp_group, dim % x.dim())
+
+
+def gather_from_tp(x, par: Parallel | None, dim: int = -1, *,
+                   summed: bool = True):
+    """The "model" group's blocks of ``x`` joined along ``dim``.  The
+    gradient of this rank's block is its block of the gradients summed
+    over the group (``summed``: each rank uses its own part of the
+    whole), or of this rank's gradient alone (each rank uses the whole
+    alike)."""
+    if par is None or not par.tp:
+        return x
+    return _GatherTP.apply(x, par.tp_group, dim % x.dim(), par.tp_rank,
+                           summed)
 
 
 def all_reduce_max(x, group):

@@ -2,9 +2,9 @@
 group of 8 ranks, in a subprocess: reduced gemma3-12b on the (2, 2, 2)
 ("pod", "data", "model") mesh at the reference's debug shapes
 (``tests/test_dryrun_debug.py``: train 128 x 16, prefill 128 x 8, decode
-128 x 8), traced on fake CPU tensors.  Its olmoe-1b-7b and
-recurrentgemma-2b rows fail at model 2 with the slice-12
-``NotImplementedError`` and trace on the (2, 4, 1) mesh.
+128 x 8), traced on fake CPU tensors; olmoe-1b-7b (the MoE) and
+recurrentgemma-2b (the RG-LRU) likewise at model 2, and on the (2, 4, 1)
+mesh.
 
 Checked: each record carries the reference's keys (its ``Roofline.
 to_dict()``'s, with ``traced_*`` in place of ``hlo_*``, and the run's
@@ -160,12 +160,18 @@ def test_serving_records_gather_and_reduce(dryrun):
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b"])
-def test_untranslated_families_fail_at_model_two(dryrun, arch):
+def test_other_families_trace_at_model_two(dryrun, arch):
+    """The MoE and the RG-LRU trace every shape at model 2, reducing over
+    the "model" group, and at model 1 with no "model" collective."""
     res, *_ = dryrun
     for kind in SHAPES:
         row = res[f"{arch}/debug_multipod/{kind}"]
-        assert not row["ok"]
-        assert "slice 12" in row["error"]
+        assert row["ok"], row
+        rec = row["rec"]
+        assert _reference_keys() <= set(rec)
+        assert rec["traced_flops_per_chip"] > 0
+        assert rec["collective_detail"]["by_dim"]["model"]["counts"][
+            "all-reduce"] > 0
         ok = res[f"{arch}/debug_multipod_tp1/{kind}"]
         assert ok["ok"], ok
         assert ok["rec"]["collective_detail"]["by_dim"].get(
@@ -174,14 +180,19 @@ def test_untranslated_families_fail_at_model_two(dryrun, arch):
 
 
 def test_shared_server_record(dryrun):
-    """The shared-server step at model 2: the "model" group's reduces, and
-    over each client dim one all_reduce a shared trained leaf (its
-    gradient) plus the loss's."""
+    """The shared-server step at model 2 under the reference's ``fsdp_tp``
+    layout: the "model" group's reduces, and over each client dim one
+    all_gather a shared leaf split over it (the body and head gathered
+    at the step's start), one reduce_scatter a trained one (its
+    gradient, back to the rank's block), one all_reduce a shared trained
+    leaf held whole over the client dims (its gradient) plus the
+    loss's."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.core.phsfl import abstract_params, build_optimizer
     from repro_torch.core.split import part_masks, split_spec_for
     from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import AbstractMesh, params_specs
     from repro_torch.utils.tree import tree_leaves
     res, *_ = dryrun
     rec = res["gemma3-12b/debug_multipod/train_shared_server"]["rec"]
@@ -194,12 +205,31 @@ def test_shared_server_record(dryrun):
     client = part_masks(shapes, split_spec_for(cfg))["client"]
     _, trained = build_optimizer(model, TrainConfig(shared_server=True),
                                  params=shapes)
-    shared = sum(m and not c for c, m in zip(tree_leaves(client),
-                                             tree_leaves(trained)))
+    mesh = AbstractMesh(*DEBUG_MESHES["debug_multipod"][::-1])
+    specs = params_specs(shapes, model.axes(), mesh, mode="fsdp_tp")
+    spec_leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            spec_leaves.append(t)
+    walk(specs)
     by_dim = rec["collective_detail"]["by_dim"]
-    assert shared > 0
     for dim in ("data", "pod"):
-        assert by_dim[dim]["counts"]["all-reduce"] == shared + 1
+        split = [not c and any(isinstance(e, tuple) and dim in e or e == dim
+                               for e in sp)
+                 for c, sp in zip(tree_leaves(client), spec_leaves)]
+        gathered = sum(split)
+        scattered = sum(s and m for s, m in zip(split, tree_leaves(trained)))
+        whole = sum(m and not c and not s for c, m, s in zip(
+            tree_leaves(client), tree_leaves(trained), split))
+        assert gathered > 0 and scattered > 0
+        counts = by_dim[dim]["counts"]
+        assert counts["all-gather"] == gathered
+        assert counts["reduce-scatter"] == scattered
+        assert counts["all-reduce"] == whole + 1
     assert by_dim["model"]["counts"]["all-reduce"] > 0
 
 

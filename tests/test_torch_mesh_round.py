@@ -133,9 +133,8 @@ def _configs():
 
 
 def _mesh_worker(rank, world, dev, ref_path):
-    """One client rank: the three mesh rounds and the "model" > 1
-    refusal of a non-dense arch; rank 0 adds the host rounds on all four
-    clients."""
+    """One client rank: the three mesh rounds and reduced olmoe's round
+    at model 2; rank 0 adds the host rounds on all four clients."""
     from repro_torch.core.phsfl import (client_index, make_host_round,
                                         make_phsfl_round)
     from repro_torch.launch.mesh import make_mesh
@@ -178,18 +177,53 @@ def _mesh_worker(rank, world, dev, ref_path):
                                  torch.tensor(mask))
             host[name] = (_flat(p), _flat(s), float(m["loss"]))
         out["host"] = host
-    # a mesh is a collective: every rank builds the tensor-parallel one.
-    # Tensor parallelism is ported for the dense decoders (mistral here);
-    # any other family is refused above model 1
-    from repro_torch.configs.registry import get_arch
-    tp = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-    make_phsfl_round(model, hcfg, tcfg, tp, global_sync=False)
-    olmoe = build_model(get_arch("olmoe-1b-7b").reduced())
-    try:
-        make_phsfl_round(olmoe, hcfg, tcfg, tp, global_sync=False)
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    # a mesh is a collective: every rank builds the tensor-parallel one,
+    # then runs reduced olmoe-1b-7b's round on it (its experts, heads and
+    # vocabulary split over "model"), two clients on the "data" dim
+    out["olmoe_tp"] = _olmoe_tp_round(rank, flat)
     return out
+
+
+def _olmoe_tp_round(rank, flat):
+    """Reduced olmoe-1b-7b's round on a (data 2, model 2) mesh, gathered
+    whole, and on rank 0 the host round of the same two clients."""
+    from repro_torch.configs.base import HierarchyConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.phsfl import (build_optimizer, make_host_round,
+                                        make_phsfl_round, stack_replicas)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import _state_specs
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import gather_params, shard_params
+    from repro_torch.utils.prng import make_generator
+    _, _, tcfg = _configs()
+    hcfg = HierarchyConfig(num_edge_servers=1, clients_per_es=2, kappa0=K,
+                           kappa1=1)
+    model = build_model(get_arch("olmoe-1b-7b").reduced())
+    one = model.init(make_generator(0, "cpu"))
+    opt, _ = build_optimizer(model, tcfg, params=one)
+    params, state = stack_replicas(one, 2), stack_replicas(opt.init(one), 2)
+    batch = {k: torch.from_numpy(flat[f"batch/{k}"][:2]) for k in (
+        "tokens", "labels")}
+    au = torch.tensor([0.25, 0.75])
+    tp = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    rnd = make_phsfl_round(model, hcfg, tcfg, tp, global_sync=False)
+    spec = rnd.params_spec
+    c = tp.get_local_rank("data")
+    mine = lambda t: t[c:c + 1]  # noqa: E731
+    p, s, m = rnd.fn(shard_params(params, spec, tp),
+                     shard_params(state, _state_specs(state, spec,
+                                                      ("data",)), tp),
+                     {k: mine(v) for k, v in batch.items()}, mine(au),
+                     mine(au))
+    got = (_flat(gather_params(p, spec, tp)), float(m["loss"]))
+    if rank:
+        return {"tp": got}
+    host = make_host_round(model, hcfg, tcfg, num_clients=2,
+                           global_sync=False)
+    p, s, m = host.fn(params, state, batch, au, au)
+    return {"tp": got, "host": (_flat(p), float(m["loss"])),
+            "init": _flat(params)}
 
 
 @pytest.fixture(scope="module")
@@ -288,7 +322,22 @@ def test_params_spec_matches_reference(reference, ranks):
     assert flat(ranks[0]["spec"]) == want
 
 
-def test_a_model_dim_above_one_is_refused(ranks):
-    # above model 1 only the non-dense families are refused (slice 12)
-    assert "ROADMAP" in ranks[0]["refused"]
-    assert "slice 12" in ranks[0]["refused"]
+def test_a_model_dim_above_one_runs_the_moe(ranks):
+    """Reduced olmoe-1b-7b's round at (data 2, model 2) equals the host
+    round of the same two clients within the file's tolerance, and its
+    update is not lost: a gradient that missed its sum over "model"
+    moves the weights by half their step (~1e-4 at lr 0.05, far above
+    atol)."""
+    row = ranks[0]["olmoe_tp"]
+    (got, loss), (want, host_loss) = row["tp"], row["host"]
+    assert got.keys() == want.keys()
+    moved = 0
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **TOL, err_msg=k)
+        moved += not np.array_equal(want[k], row["init"][k])
+    assert moved > len(want) // 2
+    np.testing.assert_allclose(loss, host_loss, **TOL)
+    assert np.isfinite(loss)
+    for r in ranks[1:]:
+        for k in got:
+            assert np.array_equal(r["olmoe_tp"]["tp"][0][k], got[k]), k
