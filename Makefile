@@ -50,3 +50,34 @@ trace-smoke:
 	PYTHONPATH=src $(PY) -m repro.launch.train $(RESUME_ARGS) \
 		--trace-dir /tmp/trace_smoke
 	PYTHONPATH=src $(PY) tools/check_trace.py /tmp/trace_smoke
+
+# The PyTorch port's mirrors of resume-smoke and trace-smoke: the same
+# RESUME_ARGS through repro_torch.launch.train on the card (PORT_DEVICE=cpu
+# to run them on the CPU), into the git-ignored build/ directory.
+#   make port-resume-smoke — the final state checkpoints of the whole and
+#                            the killed-and-resumed run, byte-identical
+#                            (tools.port_ckpt_diff)
+#   make port-trace-smoke  — tools/check_trace.py over the --trace-dir run
+PORT_DEVICE ?= cuda
+PORT_SMOKE = build/port_smoke
+
+.PHONY: port-resume-smoke port-trace-smoke
+
+port-resume-smoke:
+	rm -rf $(PORT_SMOKE)/resume && mkdir -p $(PORT_SMOKE)/resume
+	PYTHONPATH=src $(PY) -m repro_torch.launch.train $(RESUME_ARGS) \
+		--device $(PORT_DEVICE) --ckpt-dir $(PORT_SMOKE)/resume/full
+	PYTHONPATH=src $(PY) -m repro_torch.launch.train $(RESUME_ARGS) \
+		--device $(PORT_DEVICE) --ckpt-dir $(PORT_SMOKE)/resume/killed \
+		--abort-after 1
+	PYTHONPATH=src $(PY) -m repro_torch.launch.train $(RESUME_ARGS) \
+		--device $(PORT_DEVICE) --ckpt-dir $(PORT_SMOKE)/resume/killed \
+		--resume
+	$(PY) -m tools.port_ckpt_diff $(PORT_SMOKE)/resume/full/state \
+		$(PORT_SMOKE)/resume/killed/state
+
+port-trace-smoke:
+	rm -rf $(PORT_SMOKE)/trace
+	PYTHONPATH=src $(PY) -m repro_torch.launch.train $(RESUME_ARGS) \
+		--device $(PORT_DEVICE) --trace-dir $(PORT_SMOKE)/trace
+	PYTHONPATH=src $(PY) tools/check_trace.py $(PORT_SMOKE)/trace

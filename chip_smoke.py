@@ -22,9 +22,10 @@ seamless-m4t-medium, served and trained whole (K2 in its encoder's and
 decoder's self-attention at head width 64), with activation
 checkpointing (``remat``) in the host round, and the mesh rounds over
 ``torch.distributed`` process groups (NCCL at world size 1; four and
-two ranks on the one card over gloo, K2 and K3 on their paths).  Phases, each printing one
-JSON line (any mismatch or fault exits non-zero; no phase's failure is
-caught):
+two ranks on the one card over gloo, K2 and K3 on their paths), and the
+port's ten examples with its checkpoint and trace tools (K1, K2 and K3
+on the examples' paths).  Phases, each printing one JSON line (any
+mismatch or fault exits non-zero; no phase's failure is caught):
 
 1. device: the card as ``nvidia-smi --query-gpu=name,power.limit`` gives
    it (also printed as a line of its own), torch and CUDA versions;
@@ -179,8 +180,8 @@ caught):
     under the reference's default remat ("full") against it without:
     parameters and states within 2e-4 (bit-equality reported), K3 twice
     per mLSTM layer a local step (the recompute) against once;
-21. train_xlstm: PHSFL training at xlstm-350m's published config whole
-    (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 1
+21. train_xlstm: PHSFL training at xlstm-350m's published widths cut to
+    12 layers (bf16), 4 clients in one ES, kappa0 = 2 steps of 2 x 256 tokens, 1
     round, then the head bank and both evaluations, counts set to 0
     just before and read just after; the head frozen bit for bit, the
     clients equal after the edge step, a positive personalization gain;
@@ -285,16 +286,30 @@ caught):
     and seamless's bf16 cuts, both float32 cuts and every reduced
     config; a MoE round replays model 1's expert choices), the "model"
     group's collectives by kind, K2 / K3 / K4 launches a rank;
-    dryrun (last): the port's dry run of gemma3-12b x the four shapes
+    dryrun: the port's dry run of gemma3-12b x the four shapes
     and deepseek-v2-236b at train_4k on the (16, 16) mesh over a fake
     group of 256 ranks, fake CUDA tensors: each record's terms, traced
     against analytic FLOPs and collectives, the traced peak, no K2
     launch;
-33. the kernels line (each kernel's launches on its serving or CNN path,
+33. examples (last): each ``examples/port_*.py``'s ``main`` in this
+    process on the card at the reference example's own arguments,
+    counts set to 0 just before each and read just after (one JSON line
+    an example: wall seconds, K1-K4 launches against their reckoning,
+    the numbers it printed): K1 in compressed_phsfl's int8 runs, K2 in
+    quickstart (gemma3-12b reduced), K3 in serve_personalized
+    (xlstm-350m reduced); the scheduler-only examples' stdout equal to a
+    child process's without a card; personalized_federation's PHSFL
+    gain above 0; the multipod dry run's child exits 0; then the
+    Makefile's port-resume-smoke (``RESUME_ARGS`` through
+    ``launch.train``'s ``main`` three times, the state directories
+    bit-identical under ``tools/port_ckpt_diff.py``) and
+    port-trace-smoke (``tools/check_trace.py`` exit 0 on the
+    ``--trace-dir`` run), K3's launches in each run against theirs;
+34. the kernels line (each kernel's launches on its serving or CNN path,
     on each training phase as that phase read them, on the network
     phases, the telemetry phases, the zoo's and seamless's, on the mesh
-    phases by run and by rank, on the launch tools' phases, with each
-    probe's wall time), then
+    phases by run and by rank, on the launch tools' phases, on each
+    example, with each probe's wall time), then
     ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -410,6 +425,11 @@ TRAIN_XLSTM_CONTEXT = dict(TRAIN_XLSTM, rounds=1, clients=2, local_steps=1,
 # took 91-116 s on the H100's host, a sixth of the script's time, which
 # tp_families needs (PERF.md §6)
 TRAIN_XLSTM_CONTEXT_LAYERS = 4
+# train_xlstm at the published widths cut to 12 layers (6 mLSTM, 6 sLSTM):
+# whole, its round and step profile took ~80 s on the H100's host, and
+# with the examples phase the script read 893.5 s of the 900 s it is
+# held to (PERF.md §6)
+TRAIN_XLSTM_LAYERS = 12
 # host-clock repeats of the profiled local step's forward and backward
 TRAIN_STEP_REPEATS = 2
 # train_rglru: recurrentgemma-2b's published widths cut to 3 layers
@@ -2241,13 +2261,14 @@ def backward_seconds_by_block_kind(torch, loss_fn, repeats, targets):
 
 def phase_train_xlstm(torch, kernels, kw=TRAIN_XLSTM, name="train_xlstm",
                       profile=True, layers=None):
-    """PHSFL training at xlstm-350m's published config whole (24 layers,
-    d_model 1024, mLSTM heads of 512, vocab 50304, bf16) through
+    """PHSFL training at xlstm-350m's published widths (d_model 1024,
+    mLSTM heads of 512, vocab 50304, bf16; 24 layers whole, ``layers``
+    cuts the depth: TRAIN_XLSTM_LAYERS, TRAIN_XLSTM_CONTEXT_LAYERS) through
     train(): the reference CLI's traffic (4 clients in 1 ES, kappa0 = 2
     local steps of micro-batch 2, 5 head steps) with lr 0.01, the paper's
     eta; TRAIN_XLSTM runs 1 round at 256 tokens a sequence (the sLSTM's
     Python loop over time), TRAIN_XLSTM_CONTEXT one round of 2 clients x
-    one step at the published 2048 (``layers``: cut to that depth).
+    one step at the published 2048.
     Counts set to 0 just before and read just after.
     Fails on a non-finite loss, a head leaf that moved, clients that
     differ after the edge step, or a personalization gain <= 0 (on the
@@ -5561,6 +5582,236 @@ def phase_dryrun(torch):
     return rows
 
 
+
+# ------------------------------------------------------------- the examples --
+# every examples/port_<name>.py, called in this process at the reference
+# example's own arguments (none: the card by default); the scheduler-only
+# ones again in a child process that sees no card
+EXAMPLES_SCHEDULER_ONLY = ("faulty_phsfl", "pipelined_phsfl",
+                           "device_aware_cut")
+EXAMPLES_FEDSIM = ("personalized_federation", "wireless_phsfl",
+                   "adaptive_cut", "compressed_phsfl")
+EXAMPLES_LAUNCHERS = ("quickstart", "serve_personalized",
+                      "multipod_dryrun_demo")
+EXAMPLE_NUMBER = re.compile(r"[-+]?\d[\d,]*(?:\.\d+)?(?:e[-+]?\d+)?")
+
+
+def _load_file(path: Path):
+    """A script of the checkout (an example, a tool) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_{path.parent.name}_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _load_example(name):
+    return _load_file(ROOT / "examples" / f"port_{name}.py")
+
+
+@contextlib.contextmanager
+def _fd_stdout(path):
+    """The process's stdout, file descriptor 1 included (a child process
+    inherits it), written to ``path`` inside the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "wb") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _printed_numbers(text) -> list:
+    """The numbers of each printed line that has any."""
+    rows = []
+    for line in text.splitlines():
+        nums = [float(n.replace(",", "")) for n in
+                EXAMPLE_NUMBER.findall(line)]
+        if nums:
+            rows.append(nums)
+    return rows
+
+
+def _scheduler_examples_on_cpu() -> dict:
+    """The scheduler-only examples' stdout from a child process that sees
+    no card (``CUDA_VISIBLE_DEVICES`` empty)."""
+    code = ("import contextlib, io, json, sys\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+            "import torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "from chip_smoke import _load_example\n"
+            "out = {}\n"
+            f"for name in {EXAMPLES_SCHEDULER_ONLY!r}:\n"
+            "    buf = io.StringIO()\n"
+            "    with contextlib.redirect_stdout(buf):\n"
+            "        _load_example(name).main([])\n"
+            "    out[name] = buf.getvalue()\n"
+            "print(json.dumps(out))\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _resume_args() -> list:
+    """The Makefile's ``RESUME_ARGS`` (resume-smoke and trace-smoke)."""
+    import shlex
+    lines = (ROOT / "Makefile").read_text().splitlines()
+    start = next(i for i, line in enumerate(lines)
+                 if line.startswith("RESUME_ARGS ="))
+    text = []
+    for line in lines[start:]:
+        text.append(line.rstrip("\\").strip())
+        if not line.endswith("\\"):
+            break
+    return shlex.split(" ".join(text).partition("=")[2])
+
+
+def example_launches_expected() -> dict:
+    """Each example's K1-K4 launches, reckoned from the code: K1 twice a
+    minibatch step (the cut's activations and gradients, all clients in
+    one launch) and once a client-block leaf an edge round (the offload)
+    in compressed_phsfl's two int8 runs (2 rounds x kappa1 2 x (kappa0 5
+    x 5 minibatches x 2 + leaves), conv1: 2 leaves, fc1: 6); K2 once an
+    attention layer a trunk forward in quickstart (gemma3-12b reduced,
+    train()'s forwards at 5 rounds x 4 clients x 2 local steps); K3 once
+    an mLSTM layer in serve_personalized's one head-bank forward
+    (xlstm-350m reduced); none elsewhere (the dry run's trace runs on
+    fake tensors in its own process)."""
+    from repro_torch.configs.base import MLSTM
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.cnn import CUT_CANDIDATES, client_keys_for
+    zero = {"quantize": 0, "flash_attention": 0, "mlstm_chunk": 0,
+            "rglru_scan": 0}
+    out = {name: dict(zero) for name in (
+        EXAMPLES_SCHEDULER_ONLY + EXAMPLES_FEDSIM + EXAMPLES_LAUNCHERS)}
+    out["compressed_phsfl"]["quantize"] = sum(
+        2 * 2 * (5 * 5 * 2 + 2 * len(client_keys_for(cut)))
+        for cut in (CUT_CANDIDATES[0], CUT_CANDIDATES[-1]))
+    gemma = get_arch("gemma3-12b").reduced()
+    out["quickstart"]["flash_attention"] = _train_forwards(
+        dict(rounds=5, clients=4, local_steps=2)) * attention_layers(gemma)
+    out["serve_personalized"]["mlstm_chunk"] = sum(
+        k == MLSTM for k in get_arch("xlstm-350m").reduced().layer_kinds())
+    return out
+
+
+def phase_examples(torch, kernels):
+    """Every ``examples/port_*.py``'s ``main`` in this process on the card
+    at the reference example's own arguments, counts set to 0 just before
+    each and read just after: one JSON line an example with its wall
+    seconds, launches and the numbers it printed.  Then the Makefile's
+    port-resume-smoke (three ``launch.train`` runs with ``RESUME_ARGS``,
+    the state directories through ``tools/port_ckpt_diff.py``) and
+    port-trace-smoke (the ``--trace-dir`` run through
+    ``tools/check_trace.py``).  Fails unless each example launches what
+    ``example_launches_expected`` reckons, the scheduler-only examples
+    print what they print in a child process without a card, the PHSFL
+    row of personalized_federation shows a gain above 0, the resumed
+    state is bit-identical and the trace directory passes."""
+    expected = example_launches_expected()
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in (EXAMPLES_SCHEDULER_ONLY + EXAMPLES_FEDSIM
+                     + EXAMPLES_LAUNCHERS):
+            mod = _load_example(name)
+            path = Path(d) / f"{name}.txt"
+            reset_counts(kernels)
+            with _fd_stdout(path):
+                ret, wall = sync_time(torch, lambda: mod.main([]))
+            counts = read_counts(kernels)
+            text = path.read_text()
+            rows[name] = {"wall_s": wall, "launches": counts,
+                          "launches_expected": expected[name],
+                          "numbers": _printed_numbers(text), "text": text}
+            if name == "multipod_dryrun_demo":
+                rows[name]["exit_code"] = ret
+        cpu = _scheduler_examples_on_cpu()
+        args = _resume_args()
+        from repro_torch.configs.base import MLSTM
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.launch.train import main as train_main
+        from repro_torch.launch.train import parse_args
+        flags = parse_args(args)
+        smoke_expected = _train_forwards(vars(flags)) * sum(
+            k == MLSTM for k in get_arch(flags.arch).reduced().layer_kinds())
+        smoke = {}
+        runs = (("full", ["--ckpt-dir", f"{d}/resume/full"]),
+                ("killed", ["--ckpt-dir", f"{d}/resume/killed",
+                            "--abort-after", "1"]),
+                ("resumed", ["--ckpt-dir", f"{d}/resume/killed",
+                             "--resume"]),
+                ("trace", ["--trace-dir", f"{d}/trace"]))
+        for run, extra in runs:
+            reset_counts(kernels)
+            with _fd_stdout(Path(d) / f"{run}.txt"):
+                res, wall = sync_time(torch, lambda: train_main(
+                    [*args, "--device", "cuda", *extra]))
+            smoke[run] = {"wall_s": wall, "launches": read_counts(kernels),
+                          "final_loss": res.final_loss,
+                          "aborted_after": res.aborted_after}
+        with _fd_stdout(Path(d) / "diff.txt"):
+            diff_rc = _load_file(ROOT / "tools" / "port_ckpt_diff.py").main(
+                [f"{d}/resume/full/state", f"{d}/resume/killed/state"])
+        with _fd_stdout(Path(d) / "check.txt"):
+            trace_rc = _load_file(ROOT / "tools" / "check_trace.py").main(
+                [f"{d}/trace"])
+        diff_text = (Path(d) / "diff.txt").read_text().strip()
+        trace_text = (Path(d) / "check.txt").read_text().strip()
+    for name, row in rows.items():
+        same_as_cpu = (row["text"] == cpu[name]
+                       if name in EXAMPLES_SCHEDULER_ONLY else None)
+        emit({"phase": "examples", "example": name,
+              "argv": [], "wall_s": row["wall_s"],
+              "launches": row["launches"],
+              "launches_expected": row["launches_expected"],
+              **({"exit_code": row["exit_code"]} if "exit_code" in row
+                 else {}),
+              **({"same_as_cpu": same_as_cpu} if same_as_cpu is not None
+                 else {}),
+              "printed_numbers": row["numbers"]})
+    emit({"phase": "examples", "example": "port-resume-smoke",
+          "resume_args": args, "runs": {k: v for k, v in smoke.items()
+                                        if k != "trace"},
+          "mlstm_launches_expected": smoke_expected,
+          "port_ckpt_diff_rc": diff_rc, "port_ckpt_diff": diff_text})
+    emit({"phase": "examples", "example": "port-trace-smoke",
+          "resume_args": args, "run": smoke["trace"],
+          "mlstm_launches_expected": smoke_expected,
+          "check_trace_rc": trace_rc, "check_trace": trace_text})
+    for name, row in rows.items():
+        assert row["launches"] == row["launches_expected"], (name, row[
+            "launches"], row["launches_expected"])
+    for name in EXAMPLES_SCHEDULER_ONLY:
+        assert rows[name]["text"] == cpu[name], name
+        assert rows[name]["text"].count("\n") > 5, name
+    phsfl = [r for r in rows["personalized_federation"]["text"].splitlines()
+             if r.startswith("phsfl")]
+    assert len(phsfl) == 1 and float(phsfl[0].split()[-1]) > 0, phsfl
+    assert rows["multipod_dryrun_demo"]["exit_code"] == 0
+    assert "ok chips=512" in rows["multipod_dryrun_demo"]["text"]
+    for name in EXAMPLES_FEDSIM + ("quickstart", "serve_personalized"):
+        assert all(math.isfinite(v) for line in rows[name]["numbers"]
+                   for v in line), name
+    k3 = {run: r["launches"]["mlstm_chunk"] for run, r in smoke.items()}
+    assert (k3["full"] == k3["trace"] == k3["killed"] + k3["resumed"]
+            == smoke_expected > 0), (k3, smoke_expected)
+    assert all(r["launches"]["mlstm_chunk"] == sum(r["launches"].values())
+               for r in smoke.values()), smoke
+    assert smoke["killed"]["aborted_after"] == 1
+    assert smoke["full"]["aborted_after"] is None
+    assert smoke["full"]["final_loss"] == smoke["resumed"]["final_loss"]
+    assert diff_rc == 0 and "bit-identical" in diff_text, diff_text
+    assert trace_rc == 0, trace_text
+    return {name: row["launches"] for name, row in rows.items()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5639,7 +5890,8 @@ def main() -> int:
                                                              kernels)}
     train_counts["reference_train_remat"] = phase_reference_train_remat(
         torch, np, kernels)
-    train_counts["train_xlstm"] = phase_train_xlstm(torch, kernels)
+    train_counts["train_xlstm"] = phase_train_xlstm(
+        torch, kernels, layers=TRAIN_XLSTM_LAYERS)
     train_counts["train_xlstm_2048"] = phase_train_xlstm(
         torch, kernels, TRAIN_XLSTM_CONTEXT, "train_xlstm_2048",
         layers=TRAIN_XLSTM_CONTEXT_LAYERS,
@@ -5673,6 +5925,11 @@ def main() -> int:
     mesh_counts["train_mesh_seamless"] = phase_train_mesh_seamless(
         torch, np, kernels)
     phase_dryrun(torch)
+    example_counts = phase_examples(torch, kernels)
+
+    def examples(name):
+        """Each port example's launches of one kernel."""
+        return {ex: counts[name] for ex, counts in example_counts.items()}
 
     def mesh_launches(name):
         """Each mesh phase's launches of one kernel: mesh_nccl's by run,
@@ -5710,6 +5967,7 @@ def main() -> int:
         "launches": launches, "train_launches": train_launches("quantize"),
         "wireless_launches": wireless_launches("quantize"),
         "telemetry": telemetry("quantize"),
+        "examples_launches": examples("quantize"),
         "equal": True, "max_abs_err": max_err,
         "ms": timing["kernel_ms"], "kernel_ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
@@ -5728,6 +5986,7 @@ def main() -> int:
             "tp_families_per_rank": tp_families["flash_attention"]},
         "wireless_launches": wireless_launches("flash_attention"),
         "telemetry": telemetry("flash_attention"),
+        "examples_launches": examples("flash_attention"),
         "within_tolerance": True,
         "tolerance": FLASH_TOL, "max_abs_err": flash_err,
         "shape": "global layer: q (6,2048,16,256), k/v (6,2048,8,256) "
@@ -5790,6 +6049,7 @@ def main() -> int:
             "tp_families_per_rank": tp_families["mlstm_chunk"]},
         "wireless_launches": wireless_launches("mlstm_chunk"),
         "telemetry": telemetry("mlstm_chunk"),
+        "examples_launches": examples("mlstm_chunk"),
         "within_tolerance": True,
         "tolerance": MLSTM_TOL, "max_abs_err": mlstm_err,
         "shape": "q, k, v (6,2048,4,512) bf16, li/lf (6,2048,4) float32",
@@ -5808,6 +6068,7 @@ def main() -> int:
             "tp_families_per_rank": tp_families["rglru_scan"]},
         "wireless_launches": wireless_launches("rglru_scan"),
         "telemetry": telemetry("rglru_scan"),
+        "examples_launches": examples("rglru_scan"),
         "within_tolerance": True,
         "tolerance": RGLRU_TOL, "max_abs_err": rglru_err,
         "shape": "log_a, b (6,2048,2560) float32, h0 (6,2560) float32",

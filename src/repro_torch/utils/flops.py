@@ -1,5 +1,4 @@
-"""Analytical FLOP accounting: the part of ``repro.utils.flops`` that
-``models.cnn.client_block_flops`` and ``core.comm`` need, copied."""
+"""Analytical FLOP accounting (the reference's ``repro.utils.flops``)."""
 
 from __future__ import annotations
 
@@ -12,6 +11,18 @@ def matmul_flops(m: int, k: int, n: int) -> int:
 def dense_model_flops(num_params: int, num_tokens: int) -> int:
     """The standard 6*N*D training-FLOPs estimate (fwd 2ND + bwd 4ND)."""
     return 6 * num_params * num_tokens
+
+
+def forward_model_flops(num_params: int, num_tokens: int) -> int:
+    """2*N*D forward-only estimate (prefill / decode)."""
+    return 2 * num_params * num_tokens
+
+
+def attention_flops(batch: int, q_len: int, kv_len: int, num_heads: int,
+                    head_dim: int, *, backward: bool = False) -> int:
+    """QK^T + AV flops for (possibly rectangular) attention."""
+    f = 2 * batch * num_heads * q_len * kv_len * head_dim * 2  # qk and av
+    return f * 3 if backward else f
 
 
 def conv2d_flops(batch: int, out_h: int, out_w: int, kernel: int,

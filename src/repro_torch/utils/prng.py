@@ -13,6 +13,8 @@ seed: parity tests hand both sides the same numpy-made noise instead.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 _MASK64 = (1 << 64) - 1
@@ -25,6 +27,19 @@ def fold_in(seed: int, data: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> (64 - SEED_BITS)
+
+
+def key_iter(seed: int):
+    """Infinite iterator of fresh seeds: ``fold_in(seed, 0)``,
+    ``fold_in(seed, 1)``, ...
+
+    The reference yields jax keys split off a chain; a jax key is not a
+    torch generator, so the port yields integer seeds by its own
+    ``fold_in`` convention instead (``make_generator`` seeds a generator
+    from one).  The same seed gives the same stream; the two packages'
+    streams differ."""
+    for i in itertools.count():
+        yield fold_in(seed, i)
 
 
 def str_hash(name: str) -> int:

@@ -2,16 +2,23 @@
 
 The port keeps the reference's tree layout (``{"conv1": {"w", "b"}, ...}``;
 the recurrent decode caches hold tuples, as the mLSTM carry ``(C, n, m)``)
-and needs only a few helpers over it; ``tree_weighted_sum`` is a copy of
-``repro.utils.tree.tree_weighted_sum`` (the FedAvg primitive).  An axes
-tree (``Model.axes``) mirrors a params tree with tuples of logical axis
+and keeps the reference's helpers over it (``repro.utils.tree``), as
+functions of dict/tuple trees of tensors; ``tree_weighted_sum`` is the
+FedAvg primitive.  ``tree_paths`` and ``mask_by_path`` walk a tree in the
+reference's order (a dict's keys sorted, as jax flattens them; ``None``
+holds no leaf), so their paths are the reference's for the same tree.
+An axes tree (``Model.axes``) mirrors a params tree with tuples of logical axis
 names for leaves (``axes_leaf``); ``axes_map`` walks the two side by
 side.
 """
 
 from __future__ import annotations
 
+import math
+import re
 from typing import Any, Callable, Iterator
+
+import torch
 
 PyTree = Any
 
@@ -107,3 +114,108 @@ def tree_weighted_sum(trees: list[PyTree], weights) -> PyTree:
     for t, w in zip(trees[1:], weights[1:]):
         out = tree_add(out, tree_scale(t, w))
     return out
+
+
+# ---------------------------------------- the reference's path utilities --
+
+def path_str(path) -> str:
+    """Render a key path (the dict keys and sequence indices from the root
+    to a leaf, as :func:`tree_paths` walks them) as 'a/b/0/c', as the
+    reference renders a jax key path."""
+    return "/".join(str(p) for p in path)
+
+
+def _key_paths(tree: PyTree, is_leaf: Callable[[Any], bool] | None = None,
+               path: tuple = ()) -> Iterator:
+    """(key path, leaf) pairs in jax's flattening order: a dict's keys
+    sorted, tuples and lists in order, ``None`` an empty subtree, and a
+    node for which ``is_leaf`` holds taken whole."""
+    if is_leaf is not None and is_leaf(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _key_paths(tree[k], is_leaf, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, t in enumerate(tree):
+            yield from _key_paths(t, is_leaf, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def tree_paths(tree: PyTree,
+               is_leaf: Callable[[Any], bool] | None = None) -> list[str]:
+    """Every leaf's '/'-joined path, in the reference's order."""
+    return [path_str(p) for p, _ in _key_paths(tree, is_leaf)]
+
+
+def _map_key_paths(fn: Callable, tree: PyTree, *rest: PyTree,
+                   is_leaf=None, path: tuple = ()) -> PyTree:
+    """``fn(key path, leaf, *the other trees' leaves)`` over trees of
+    ``tree``'s structure, as jax maps them: dicts, tuples and lists are
+    nodes, ``None`` an empty subtree kept as ``None``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(path, tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map_key_paths(fn, tree[k], *(r[k] for r in rest),
+                                  is_leaf=is_leaf, path=path + (k,))
+                for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_key_paths(fn, t, *(r[i] for r in rest),
+                                         is_leaf=is_leaf, path=path + (i,))
+                          for i, t in enumerate(tree))
+    return None if tree is None else fn(path, tree, *rest)
+
+
+def mask_by_path(tree: PyTree, patterns: list[str],
+                 is_leaf: Callable[[Any], bool] | None = None) -> PyTree:
+    """Boolean mask tree: True where the leaf path matches any regex
+    pattern."""
+    regs = [re.compile(p) for p in patterns]
+    return _map_key_paths(
+        lambda path, _: any(r.search(path_str(path)) for r in regs), tree,
+        is_leaf=is_leaf)
+
+
+def tree_size(tree: PyTree) -> int:
+    """Elements over every leaf."""
+    return sum(math.prod(x.shape) for _, x in _key_paths(tree))
+
+
+def tree_bytes(tree: PyTree) -> int:
+    """Bytes over every leaf."""
+    return sum(math.prod(x.shape) * x.dtype.itemsize
+               for _, x in _key_paths(tree))
+
+
+def merge_trees(mask: PyTree, a: PyTree, b: PyTree) -> PyTree:
+    """Select leaf from ``a`` where mask is True else from ``b``."""
+    return _map_key_paths(lambda _, m, x, y: x if m else y, mask, a, b)
+
+
+def select_tree(mask: PyTree, tree: PyTree) -> PyTree:
+    """The tree's structure with the leaves where mask is False set to
+    None; useful for reporting."""
+    return _map_key_paths(lambda _, m, x: x if m else None, mask, tree)
+
+
+def tree_allfinite(tree: PyTree) -> torch.Tensor:
+    """A 0-d bool tensor: every floating leaf holds only finite values
+    (True for a tree without one)."""
+    leaves = [torch.as_tensor(x) for _, x in _key_paths(tree)]
+    finite = [torch.isfinite(t).all() for t in leaves
+              if t.is_floating_point()]
+    if not finite:
+        return torch.tensor(True)
+    return torch.stack(finite).all()
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return _map_key_paths(lambda _, x: torch.zeros_like(x), tree)
+
+
+def tree_l2_distance(a: PyTree, b: PyTree) -> torch.Tensor:
+    """||a - b||_2 over every leaf, the squares summed in float32 leaf by
+    leaf in the reference's order."""
+    sq = [torch.sum((x.float() - y.float()) ** 2)
+          for (_, x), (_, y) in zip(_key_paths(a), _key_paths(b))]
+    return torch.sqrt(sum(sq))

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of ``repro_torch``, and not
+"""The port stands alone: no module of ``repro_torch``, no port example
+(``examples/port_*.py``) or port tool (``tools/port_*.py``), and not
 ``chip_smoke.py``, imports ``jax`` or anything of the JAX package
 ``repro``, and importing every module of the port loads no jax."""
 
@@ -16,7 +17,11 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("port_*.py"))
+    tools = sorted((ROOT / "tools").glob("port_*.py"))
+    assert len(examples) == 10 and tools
+    files = (sorted(PORT.rglob("*.py")) + examples + tools
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10 and all(f.exists() for f in files)
     return files
 
