@@ -57,7 +57,8 @@ trace-smoke:
 #   make port-resume-smoke — the final state checkpoints of the whole and
 #                            the killed-and-resumed run, byte-identical
 #                            (tools.port_ckpt_diff)
-#   make port-trace-smoke  — tools/check_trace.py over the --trace-dir run
+#   make port-trace-smoke  — tools/check_trace.py over the --trace-dir run,
+#                            tools.port_check_spans over its spans.json
 PORT_DEVICE ?= cuda
 PORT_SMOKE = build/port_smoke
 
@@ -81,3 +82,4 @@ port-trace-smoke:
 	PYTHONPATH=src $(PY) -m repro_torch.launch.train $(RESUME_ARGS) \
 		--device $(PORT_DEVICE) --trace-dir $(PORT_SMOKE)/trace
 	PYTHONPATH=src $(PY) tools/check_trace.py $(PORT_SMOKE)/trace
+	$(PY) -m tools.port_check_spans $(PORT_SMOKE)/trace/spans.json

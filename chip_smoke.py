@@ -160,8 +160,9 @@ mismatch or fault exits non-zero; no phase's failure is caught):
     check_probes: each of K1–K4's wrappers once at its main-path shape
     with a metrics sink: one probed call equal to one launch, the
     reference's FLOP formula, the operands' and output's bytes, one wall
-    time, the output bit-equal to the unprobed call; the probed wall time
-    beside the time phases' event time;
+    time (the wrapper's stream time, resolved before the snapshot), the
+    output bit-equal to the unprobed call; the probed wall time beside
+    the time phases' event time;
 18. reference_serve_rglru: ``serve()`` at
     ``recurrentgemma-2b.reduced(num_layers=8)`` on the card against the
     same call on the CPU, same weights and seed;
@@ -3102,10 +3103,11 @@ def phase_check_probes(torch, kernels, fa_ops, ml_ops, ops, rg_ops,
     once and equal to the kernel's launches over the call; the reference's
     FLOP formula; the operands' and output's bytes; one wall time; and the
     output bit-equal to the same call with no sink.  The probed wall time
-    (host clock from wrapper entry to a synchronised result: launch,
-    K1's scale and uniforms, synchronisation) beside the unprobed
+    (the wrapper's stream time: an event pair from wrapper entry to its
+    return, K1's scale and uniforms included, resolved by
+    ``telemetry.spans.resolve`` before the snapshot) beside the unprobed
     CUDA-event time of the time* phases."""
-    from repro_torch.telemetry import MetricsRegistry, set_kernel_sink
+    from repro_torch.telemetry import MetricsRegistry, set_kernel_sink, spans
     calls = _probe_calls(torch, fa_ops, ml_ops, ops, rg_ops)
     rows = {}
     for name in PROBE_KERNELS:
@@ -3119,6 +3121,7 @@ def phase_check_probes(torch, kernels, fa_ops, ml_ops, ops, rg_ops,
             out = fn()
         finally:
             set_kernel_sink(None)
+        spans.resolve()                    # the probe's event pair
         after = read_counts(kernels)
         delta = {k: after[k] - before[k] for k in after}
         snap = reg.snapshot()
@@ -3382,8 +3385,8 @@ def phase_fedsim_telemetry(torch, np, kernels, data, wireless):
               np, hist, off["history"]),
           "round_wall_s_telemetry": walls,
           "round_wall_s_fedsim_wireless": off["walls"]})
-    assert files == ["manifest.json", "metrics.jsonl", "summary.txt",
-                     "trace.json"], files
+    assert files == ["manifest.json", "metrics.jsonl", "spans.json",
+                     "summary.txt", "trace.json"], files
     assert client_tracks == scheduled and len(es_tracks) == 4, (
         client_tracks, scheduled, es_tracks)
     assert n_seg > 0 and not seg_bad, seg_bad
@@ -3441,8 +3444,8 @@ def phase_train_telemetry(torch, np, kernels):
     assert on == off and on_losses == off_losses, (on, off)
     assert snap["kernel.mlstm_chunk.calls"]["value"] == on_launch \
         == expected, (snap["kernel.mlstm_chunk.calls"], on_launch, expected)
-    assert files == ["manifest.json", "metrics.jsonl", "summary.txt",
-                     "trace.json"], files
+    assert files == ["manifest.json", "metrics.jsonl", "spans.json",
+                     "summary.txt", "trace.json"], files
     assert "log.train.loss" in logs and "log.train.participants" in logs
     return counts
 

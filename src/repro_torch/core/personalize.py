@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.split import split_spec_for
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.registry import Model
+from repro_torch.telemetry import spans
 from repro_torch.utils.tree import map_with_path, path_leaves
 
 
@@ -78,7 +79,8 @@ def _client_hidden(model: Model, params, batches):
     positions), one trunk pass over the C x B sequences."""
     c, b, s = batches["tokens"].shape
     flat = {k: v.reshape(c * b, *v.shape[2:]) for k, v in batches.items()}
-    with torch.no_grad():
+    with spans.span("personalize.trunk", clients=c, tokens=c * b * s), \
+            torch.no_grad():
         hidden, _ = model.apply(params, flat)
     return hidden.reshape(c, b, s, -1)
 
@@ -91,22 +93,27 @@ def personalize_head_bank(model: Model, params, batches, tcfg: TrainConfig):
     Returns the head bank (C, D, V) in the head's dtype and per-client
     losses (C, K) float32 (the loss before each step).
     """
-    cfg = model.cfg
-    hidden = _client_hidden(model, params, batches)
-    w0 = params["lm_head"]["w"].detach()
-    c = hidden.shape[0]
-    bank = torch.empty((c, *w0.shape), dtype=w0.dtype, device=w0.device)
-    losses = torch.empty((c, tcfg.finetune_steps), dtype=torch.float32,
-                         device=w0.device)
-    for ci in range(c):
-        w = w0
-        for step in range(tcfg.finetune_steps):
-            w = w.detach().requires_grad_(True)
-            loss = head_loss(w, cfg, hidden[ci], batches["labels"][ci])
-            (g,) = torch.autograd.grad(loss, [w])
-            w = w.detach() - tcfg.finetune_lr * g.to(w.dtype)
-            losses[ci, step] = loss.detach()
-        bank[ci] = w
+    with spans.span("personalize.bank", clients=batches["tokens"].shape[0],
+                    steps=tcfg.finetune_steps):
+        cfg = model.cfg
+        hidden = _client_hidden(model, params, batches)
+        w0 = params["lm_head"]["w"].detach()
+        c = hidden.shape[0]
+        bank = torch.empty((c, *w0.shape), dtype=w0.dtype, device=w0.device)
+        losses = torch.empty((c, tcfg.finetune_steps), dtype=torch.float32,
+                             device=w0.device)
+        for ci in range(c):
+            w = w0
+            for step in range(tcfg.finetune_steps):
+                with spans.span("personalize.head_step", client=ci,
+                                step=step):
+                    w = w.detach().requires_grad_(True)
+                    loss = head_loss(w, cfg, hidden[ci],
+                                     batches["labels"][ci])
+                    (g,) = torch.autograd.grad(loss, [w])
+                    w = w.detach() - tcfg.finetune_lr * g.to(w.dtype)
+                    losses[ci, step] = loss.detach()
+            bank[ci] = w
     return bank, losses
 
 

@@ -69,6 +69,7 @@ from repro_torch.sharding.rules import (add_client_axis, as_abstract,
                                         gather_dims, params_specs,
                                         reduce_scatter_dims)
 from repro_torch.sharding.tensor_parallel import parallel_for
+from repro_torch.telemetry import spans
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -88,26 +89,31 @@ def local_steps(model: Model, opt, mask, tcfg: TrainConfig, par=None):
     "full" is the wrapper's default, None).  Frozen leaves (mask False)
     take no gradient (a broadcast zero stands in for it) and are returned
     as they are: their update is zero either way.  ``par``: this rank's
-    tensor-parallel block."""
+    tensor-parallel block.  ``run``'s ``client`` labels its spans."""
     policy = None if tcfg.remat_policy == "full" else tcfg.remat_policy
 
-    def run(p, s, batch_c):
+    def run(p, s, batch_c, client=None):
         losses = []
         for k in range(batch_c["tokens"].shape[0]):
             mb = {name: v[k] for name, v in batch_c.items()}
-            leaves = tree_map(lambda x, m: x.detach().requires_grad_(m),
-                              p, mask)
-            loss = model.loss(leaves, mb, remat=tcfg.remat,
-                              remat_policy=policy, par=par)
-            got = iter(torch.autograd.grad(
-                loss, [t for t in tree_leaves(leaves) if t.requires_grad],
-                allow_unused=True))
-            grads = tree_map(lambda t: next(got) if t.requires_grad
-                             else zeros_view(t), leaves)
-            del leaves
-            upd, s = opt.update(grads, s, p)
-            p = apply_updates(p, upd, mask)
-            losses.append(loss.detach())
+            with spans.span("phsfl.local_step", client=client, step=k,
+                            tokens=mb["tokens"].numel()):
+                with spans.span("phsfl.forward"):
+                    leaves = tree_map(
+                        lambda x, m: x.detach().requires_grad_(m), p, mask)
+                    loss = model.loss(leaves, mb, remat=tcfg.remat,
+                                      remat_policy=policy, par=par)
+                with spans.span("phsfl.backward"):
+                    got = iter(torch.autograd.grad(
+                        loss, [t for t in tree_leaves(leaves)
+                               if t.requires_grad], allow_unused=True))
+                    grads = tree_map(lambda t: next(got) if t.requires_grad
+                                     else zeros_view(t), leaves)
+                    del leaves
+                with spans.span("phsfl.update"):
+                    upd, s = opt.update(grads, s, p)
+                    p = apply_updates(p, upd, mask)
+                    losses.append(loss.detach())
         return p, s, torch.stack(losses)
 
     return run
@@ -137,6 +143,26 @@ class PHSFLRound:
     num_clients: int
     params_spec: Any = None  # partition-spec tree of the stacked params
     #                          (mesh rounds)
+
+
+def _tree_span(name: str, tree):
+    """A span over an aggregation of ``tree``: its leaves and bytes
+    (``spans.OFF`` while spans do not record)."""
+    if not spans.on():
+        return spans.OFF
+    leaves = tree_leaves(tree)
+    return spans.open(name, leaves=len(leaves),
+                      bytes=sum(x.nbytes for x in leaves))
+
+
+def _round_span(body, num_clients: int):
+    """``body`` inside a ``phsfl.round`` span while spans record."""
+    def fn(params, opt_state, batch, au, ab, mask):
+        with spans.span("phsfl.round", clients=num_clients) as sp:
+            if sp is not spans.OFF:
+                sp.args["round"] = sp.index
+            return body(params, opt_state, batch, au, ab, mask)
+    return fn
 
 
 def _lead(t: torch.Tensor, lead: tuple, ndim: int) -> torch.Tensor:
@@ -218,7 +244,7 @@ def make_host_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
 
     built = []              # the local steps, from the first call's paths
 
-    def round_body(params, opt_state, batch, au, ab, mask):
+    def body(params, opt_state, batch, au, ab, mask):
         if not built:
             built.append(local_steps(model, *build_optimizer(
                 model, tcfg, cut, params=params), tcfg))
@@ -229,17 +255,20 @@ def make_host_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
         for c in range(num_clients):
             p, s, lc = local(tree_map(lambda x: x[c], params),
                              tree_map(lambda x: x[c], opt_state),
-                             {k: v[c] for k, v in batch.items()})
+                             {k: v[c] for k, v in batch.items()}, client=c)
             for dst, src in zip(tree_leaves(new_p) + tree_leaves(new_s),
                                 tree_leaves(p) + tree_leaves(s)):
                 dst[c].copy_(src)
             del p, s
             losses.append(lc.mean())
-        p = _edge(new_p, params, au, mask)
+        with _tree_span("phsfl.edge", new_p):
+            p = _edge(new_p, params, au, mask)
         if global_sync:
-            p = _global(p, ab, mask)
+            with _tree_span("phsfl.global", p):
+                p = _global(p, ab, mask)
         return p, new_s, {"loss": torch.stack(losses).mean()}
 
+    round_body = _round_span(body, num_clients)
     if participation:
         round_fn = round_body
     else:
@@ -314,33 +343,38 @@ def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
     split boundary (a Remark-2 no-op on numerics)."""
     par = tensor_parallel(model, mesh)
     num_clients = _client_ranks(mesh)
+    me = client_index(mesh)
     groups = _client_groups(mesh)
     with_pod = "pod" in as_abstract(mesh).axis_names
     agg = getattr(torch, tcfg.agg_dtype)
     built = []              # the local steps, from the first call's paths
 
-    def per_client(params, opt_state, batch, au, ab, mask):
+    def body(params, opt_state, batch, au, ab, mask):
         p_prev = tree_map(lambda x: x[0], params)
         if not built:
             built.append(local_steps(model, *build_optimizer(
                 model, tcfg, cut, params=p_prev), tcfg, par))
         p, s, losses = built[0](p_prev, tree_map(lambda x: x[0], opt_state),
-                                {k: v[0] for k, v in batch.items()})
-        if mask is None:
-            p = edge_aggregate_mesh(p, au[0], mesh, agg)
-            if global_sync and with_pod:
-                p = global_aggregate_mesh(p, ab[0], mesh, agg)
-        else:
-            m = mask[0].to(agg)
-            p = masked_psum_weighted(p, au[0], m, p_prev,
-                                     mesh.get_group("data"), agg)
-            if global_sync and with_pod:
-                # an ES joins the global round iff it had a participant
-                n = m.clone()
-                dist.all_reduce(n, group=mesh.get_group("data"))
-                es_m = (n > 0).to(agg)
-                p = masked_psum_weighted(p, ab[0], es_m, p,
-                                         mesh.get_group("pod"), agg)
+                                {k: v[0] for k, v in batch.items()},
+                                client=me)
+        with _tree_span("phsfl.edge", p):
+            if mask is None:
+                p = edge_aggregate_mesh(p, au[0], mesh, agg)
+            else:
+                m = mask[0].to(agg)
+                p = masked_psum_weighted(p, au[0], m, p_prev,
+                                         mesh.get_group("data"), agg)
+        if global_sync and with_pod:
+            with _tree_span("phsfl.global", p):
+                if mask is None:
+                    p = global_aggregate_mesh(p, ab[0], mesh, agg)
+                else:
+                    # an ES joins the global round iff it had a participant
+                    n = m.clone()
+                    dist.all_reduce(n, group=mesh.get_group("data"))
+                    es_m = (n > 0).to(agg)
+                    p = masked_psum_weighted(p, ab[0], es_m, p,
+                                             mesh.get_group("pod"), agg)
         loss = losses.mean()
         for g in groups:                        # pmean over each client dim
             dist.all_reduce(loss, group=g)
@@ -348,6 +382,7 @@ def make_phsfl_round(model: Model, hcfg: HierarchyConfig, tcfg: TrainConfig,
         return (tree_map(lambda x: x.unsqueeze(0), p),
                 tree_map(lambda x: x.unsqueeze(0), s), {"loss": loss})
 
+    per_client = _round_span(body, num_clients)
     if participation:
         round_fn = per_client
     else:

@@ -48,6 +48,7 @@ from repro_torch.hopper.dispatch import is_fake
 from repro_torch.models.init_utils import dense, dense_axes, truncated_normal
 from repro_torch.models.layers import activation, mlp_apply
 from repro_torch.sharding import tensor_parallel as tpm
+from repro_torch.telemetry import spans
 
 group_size_reads = 0      # host reads of the group sizes in this process
 
@@ -124,68 +125,91 @@ def _local_experts(p, cfg: ModelConfig, par):
 def moe_apply(p, cfg: ModelConfig, x, *, act_name: str | None = None,
               par=None):
     """x: (B,S,D) -> (out (B,S,D) in x's dtype, aux_loss float32 scalar).
-    ``par``: this rank's tensor-parallel block (module docstring)."""
+    ``par``: this rank's tensor-parallel block (module docstring).
+
+    Spans (``telemetry.spans``, while recording): ``moe.ffn`` (args: the
+    MoE layer's index in its forward, the pairs this rank's experts run)
+    over ``moe.route``, ``moe.dispatch`` (the sort, the group-size read,
+    the gather), ``moe.experts`` (the expert loop) and ``moe.combine``
+    (the shared experts' MLP included), and ``moe.ffn.backward``."""
     global group_size_reads
     moe = cfg.moe
     act = activation(act_name or cfg.act)
     b, s, d = x.shape
-    flat = x.reshape(b * s, d)
-    top_w, top_e, counts, aux = route(p, cfg, flat)
-    first, el, split = _local_experts(p, cfg, par)
-    if split:
-        flat_in = tpm.copy_to_tp(flat, par)
-        top_w = tpm.copy_to_tp(top_w, par)
-    else:
-        flat_in = flat
+    on = spans.on()
+    if on:
+        ffn = spans.open("moe.ffn")
+        ffn.args["layer"] = ffn.index
+        mark, (x,) = spans.mark_inputs(ffn, x)
+    with spans.span("moe.route"):
+        flat = x.reshape(b * s, d)
+        top_w, top_e, counts, aux = route(p, cfg, flat)
 
-    # ---- sort token-expert pairs by expert (stable, as jnp.argsort) ----
-    flat_e = top_e.reshape(-1)                                  # (N*K,)
-    nk = flat_e.numel()
-    order = torch.argsort(flat_e, stable=True)
-    if is_fake(counts):
-        # tracing without data (the dry run): an even split of the pairs
-        q, r = divmod(nk, moe.num_experts)
-        even = [q + (e < r) for e in range(moe.num_experts)]
-        start, sizes = sum(even[:first]), even[first:first + el]
-    else:
-        # this rank's experts' run of the sorted pairs: its start and
-        # sizes in one host read
-        got = torch.cat([counts[:first].sum()[None],
-                         counts[first:first + el]]).tolist()
-        start, sizes = got[0], got[1:]
-        group_size_reads += 1
-    stop = start + sum(sizes)
-    # flat[order // K], as a permutation of the K-fold repeated rows: its
-    # backward scatters unique indices and sums the K copies of a token in
-    # a fixed order (a gather of repeated rows accumulates in thread order)
-    xs = flat_in.repeat_interleave(moe.top_k, 0)[order[start:stop]]
+    with spans.span("moe.dispatch"):
+        first, el, split = _local_experts(p, cfg, par)
+        if split:
+            flat_in = tpm.copy_to_tp(flat, par)
+            top_w = tpm.copy_to_tp(top_w, par)
+        else:
+            flat_in = flat
+
+        # ---- sort token-expert pairs by expert (stable, as jnp.argsort)
+        flat_e = top_e.reshape(-1)                              # (N*K,)
+        nk = flat_e.numel()
+        order = torch.argsort(flat_e, stable=True)
+        if is_fake(counts):
+            # tracing without data (the dry run): an even split of the
+            # pairs
+            q, r = divmod(nk, moe.num_experts)
+            even = [q + (e < r) for e in range(moe.num_experts)]
+            start, sizes = sum(even[:first]), even[first:first + el]
+        else:
+            # this rank's experts' run of the sorted pairs: its start and
+            # sizes in one host read
+            got = torch.cat([counts[:first].sum()[None],
+                             counts[first:first + el]]).tolist()
+            start, sizes = got[0], got[1:]
+            group_size_reads += 1
+        stop = start + sum(sizes)
+        # flat[order // K], as a permutation of the K-fold repeated rows:
+        # its backward scatters unique indices and sums the K copies of a
+        # token in a fixed order (a gather of repeated rows accumulates in
+        # thread order)
+        xs = flat_in.repeat_interleave(moe.top_k, 0)[order[start:stop]]
 
     # ---- grouped matmuls, one expert's segment at a time ----
-    segs, pos = [], 0
-    for e, g in enumerate(sizes):
-        if g:
-            xe = xs[pos:pos + g]
-            h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
-            segs.append(h @ p["w_down"][e])
-            pos += g
-    if start or stop < nk:          # the other ranks' pairs add zeros
-        zero = lambda n: xs.new_zeros((n, d))  # noqa: E731
-        segs = [zero(start), *segs, zero(nk - stop)]
-    y = torch.cat(segs)                                         # (N*K, D)
+    with spans.span("moe.experts"):
+        segs, pos = [], 0
+        for e, g in enumerate(sizes):
+            if g:
+                xe = xs[pos:pos + g]
+                h = act(xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+                segs.append(h @ p["w_down"][e])
+                pos += g
+        if start or stop < nk:          # the other ranks' pairs add zeros
+            zero = lambda n: xs.new_zeros((n, d))  # noqa: E731
+            segs = [zero(start), *segs, zero(nk - stop)]
+        y = torch.cat(segs)                                     # (N*K, D)
 
     # ---- combine: back to (N, K, D) by the inverse permutation ----
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    yk = y[inv].reshape(b * s, moe.top_k, d)
-    wk = top_w.to(y.dtype)
-    out = yk[:, 0] * wk[:, 0, None]
-    for j in range(1, moe.top_k):
-        out = out + yk[:, j] * wk[:, j, None]
-    if split:
-        out = tpm.reduce_from_tp(out, par)
+    with spans.span("moe.combine"):
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.numel(), device=order.device)
+        yk = y[inv].reshape(b * s, moe.top_k, d)
+        wk = top_w.to(y.dtype)
+        out = yk[:, 0] * wk[:, 0, None]
+        for j in range(1, moe.top_k):
+            out = out + yk[:, j] * wk[:, j, None]
+        if split:
+            out = tpm.reduce_from_tp(out, par)
 
-    if moe.num_shared_experts:
-        fs = moe.d_ff_shared * moe.num_shared_experts
-        out = out + mlp_apply(p["shared"], flat, act_name or cfg.act,
-                              par=par, d_ff=fs)
-    return out.reshape(b, s, d).to(x.dtype), aux.to(torch.float32)
+        if moe.num_shared_experts:
+            fs = moe.d_ff_shared * moe.num_shared_experts
+            out = out + mlp_apply(p["shared"], flat, act_name or cfg.act,
+                                  par=par, d_ff=fs)
+        out = out.reshape(b, s, d).to(x.dtype)
+    if on:
+        ffn.args["pairs"] = stop - start
+        out = spans.mark_output(mark, out)
+        spans.close(ffn)
+    return out, aux.to(torch.float32)

@@ -54,6 +54,7 @@ from repro_torch.models.init_utils import (dense, dense_axes, embedding,
 from repro_torch.models.layers import (apply_norm, mlp_apply, mlp_axes,
                                        mlp_init, softcap)
 from repro_torch.sharding import tensor_parallel as tpm
+from repro_torch.telemetry import spans
 from repro_torch.utils.tree import tree_map
 
 LOSS_CHUNK = 512  # seq chunk for the memory-bounded LM loss
@@ -432,10 +433,17 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, par=None):
     reference), so one chunk's float32 logits are live at a time.  With
     the head split by vocabulary (``par``) each chunk's log-sum-exp and
     gold logit are reduced over the "model" dim, in the forward and again
-    in the recompute."""
+    in the recompute.
+
+    Spans (``telemetry.spans``, while recording): ``lm_loss`` and
+    ``lm_loss.backward`` (args: tokens, chunks)."""
     b, s, _ = hidden.shape
     chunk = LOSS_CHUNK if s % LOSS_CHUNK == 0 else s
     w = params["lm_head"]["w"]
+    on = spans.on()
+    if on:
+        sp = spans.open("lm_loss", tokens=b * s, chunks=s // chunk)
+        mark, (hidden, w) = spans.mark_inputs(sp, hidden, w)
     split = _head_split(params, cfg, par)
     if split:
         hidden = tpm.copy_to_tp(hidden, par)
@@ -445,7 +453,11 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, par=None):
             _chunk_loss, w, hidden[:, c0:c0 + chunk],
             labels[:, c0:c0 + chunk], cfg.final_logit_softcap,
             par if split else None, use_reentrant=False)
-    return total / (b * s)
+    loss = total / (b * s)
+    if on:
+        loss = spans.mark_output(mark, loss)
+        spans.close(sp)
+    return loss
 
 
 # --------------------------------------------------------------- decode ----

@@ -22,8 +22,15 @@ every one of them inspectable without perturbing a single number:
   table.
 - **Manifest** (``telemetry.manifest``): config hash, seeds, torch/CUDA
   and device info, git SHA — who made this artifact.
+- **Spans** (``telemetry.spans``): named intervals inside the round, the
+  head bank, the MoE FFN and the loss (forward and backward), on the
+  host's Unix clock and, on the card, the CUDA stream.  They record while
+  a handle is on or a torch profiler runs, and each is also a host-only
+  profiler range of its name.  A handle writes them to ``spans.json``
+  (Chrome trace: a host track and a stream track) and as
+  ``span.<name>.host_s`` / ``span.<name>.stream_s`` histograms.
 
-:class:`Telemetry` bundles the three behind one handle.  The OFF state is
+:class:`Telemetry` bundles them behind one handle.  The OFF state is
 the default everywhere (``telemetry=None`` parameters, enforced by the
 ``telemetry-off-default`` reprolint rule) and is bit-inert: no file I/O,
 no RNG, no arithmetic.  ON is bit-inert too: the hooks only read what a
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import os
 
+from repro_torch.telemetry import spans
 from repro_torch.telemetry.kernels import (get_kernel_sink, kernel_probe,
                                            set_kernel_sink)
 from repro_torch.telemetry.manifest import (collect_manifest, config_hash,
@@ -51,6 +59,7 @@ __all__ = [
     "collect_manifest", "config_hash", "write_manifest",
     "MetricLogger", "json_safe",
     "kernel_probe", "set_kernel_sink", "get_kernel_sink",
+    "spans",
 ]
 
 
@@ -60,10 +69,13 @@ class Telemetry:
     ``Telemetry(out_dir)`` is the ON state: ``<out_dir>/trace.json``
     (streamed Chrome trace), ``<out_dir>/metrics.jsonl`` (one registry
     snapshot every ``metrics_every`` flushes), ``<out_dir>/manifest.json``
-    (via :meth:`write_manifest`), ``<out_dir>/summary.txt`` (at
-    :meth:`close`).  ``kernels=True`` additionally installs the metrics
-    registry as the global kernel-wrapper sink for the lifetime of the
-    handle.
+    (via :meth:`write_manifest`), ``<out_dir>/summary.txt`` and
+    ``<out_dir>/spans.json`` (at :meth:`close`).  While it is on, spans
+    record (``telemetry.spans``); each flush resolves the pending event
+    pairs and folds the closed spans into ``span.<name>.host_s`` and
+    ``span.<name>.stream_s`` histograms.  ``kernels=True`` additionally
+    installs the metrics registry as the global kernel-wrapper sink for
+    the lifetime of the handle.
 
     ``Telemetry.disabled()`` is the OFF state every entry point defaults
     to: ``enabled`` is False and :meth:`record_round` / :meth:`flush` /
@@ -82,8 +94,10 @@ class Telemetry:
         self._flushes = 0
         self._owns_kernel_sink = False
         self._closed = False
+        self._spans: list = []        # closed spans, for spans.json
         if not self.enabled:
             return
+        spans.attach()
         if out_dir is not None:
             os.makedirs(out_dir, exist_ok=True)
             if trace:
@@ -154,12 +168,29 @@ class Telemetry:
     def flush(self, step: int | None = None, force: bool = False) -> None:
         """Append one metrics.jsonl snapshot every ``metrics_every`` calls
         (every call with ``force``)."""
-        if not self.enabled or self._metrics_fh is None:
+        if not self.enabled:
+            return
+        self._take_spans()
+        if self._metrics_fh is None:
             return
         self._flushes += 1
         if force or (self._flushes - 1) % self.metrics_every == 0:
             self.metrics.flush_jsonl(self._metrics_fh, step=step)
             self._metrics_fh.flush()
+
+    def _take_spans(self) -> None:
+        """Resolve the pending event pairs (the spans' and the kernel
+        probes') and fold the closed spans into the registry."""
+        if self._closed:
+            return
+        got = spans.take()
+        for s in got:
+            self.metrics.histogram(f"span.{s.name}.host_s").observe(s.host_s)
+            if s.stream is not None:
+                self.metrics.histogram(f"span.{s.name}.stream_s").observe(
+                    s.stream_ms / 1e3)
+        if self.out_dir is not None:
+            self._spans += got
 
     def write_manifest(self, *, config=None, seeds=None,
                        extra=None) -> dict | None:
@@ -181,7 +212,9 @@ class Telemetry:
             return None
         if self._closed:
             return self.summary()
+        self._take_spans()
         self._closed = True
+        spans.detach()
         if self._owns_kernel_sink and get_kernel_sink() is self.metrics:
             set_kernel_sink(None)
         table = self.summary()
@@ -192,6 +225,9 @@ class Telemetry:
         if self.out_dir is not None:
             with open(os.path.join(self.out_dir, "summary.txt"), "w") as fh:
                 fh.write(table + "\n")
+            spans.write_chrome(os.path.join(self.out_dir, "spans.json"),
+                               self._spans)
+            self._spans = []
         if self.trace is not None:
             self.trace.close()
         return table

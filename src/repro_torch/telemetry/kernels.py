@@ -21,13 +21,16 @@ records under ``kernel.<name>.*``:
 - ``flops`` / ``bytes`` — nominal work per concrete call, from the
   wrapper's own analytic estimate (the reference's formulas), and the
   operands' and the output's ``nbytes``, accumulated as counters.
-- ``wall_s`` — a histogram of per-call host wall time: ``perf_counter``
-  from wrapper entry until the result is ready, which on a CUDA output
-  is ``torch.cuda.synchronize(out.device)`` (the counterpart of
-  ``block_until_ready``).  It is not a device-only time: it includes the
-  launch and the synchronisation, which is why the probe is opt-in.
+- ``wall_s`` — a histogram of per-call time.  On a CUDA output it is the
+  wrapper's stream time: an event pair (``telemetry.spans``) recorded at
+  wrapper entry and at its return, the device's time from the first to
+  the last of the call's work, waits for launches included.  The probe
+  never synchronises: the pair is resolved, and ``wall_s`` observed, when
+  the pending pairs are (``Telemetry.flush`` / ``close``, or
+  ``telemetry.spans.resolve``).  On the CPU it is the host's
+  ``perf_counter`` from wrapper entry to its return.
 - ``gflops_per_s`` — a gauge of the LAST call's achieved rate
-  (``flops / wall``).
+  (``flops / wall``), set when its ``wall_s`` is.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from repro_torch.telemetry import spans
 
 _SINK = None      # MetricsRegistry | None; None = instrumentation off
 
@@ -54,12 +59,19 @@ def _is_traced(tensors) -> bool:
             or any(t.device.type == "meta" for t in tensors))
 
 
+def _observe(reg, base: str, flops: float, wall: float) -> None:
+    reg.histogram(f"{base}.wall_s").observe(wall)
+    if wall > 0.0 and flops > 0.0:
+        reg.gauge(f"{base}.gflops_per_s").set(flops / wall / 1e9)
+
+
 class _Probe:
-    __slots__ = ("name", "t0")
+    __slots__ = ("name", "t0", "ev0")
 
     def __init__(self, name: str):
         self.name = name
         self.t0 = time.perf_counter()
+        self.ev0 = spans.start_pair()
 
     def finish(self, out, *, flops: float = 0.0, arrays=()) -> None:
         """Record the call.  ``arrays`` are the operands whose device
@@ -73,16 +85,16 @@ class _Probe:
         if _is_traced(leaves):
             reg.counter(f"{base}.traced_calls").inc()
             return
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
         wall = time.perf_counter() - self.t0
         nbytes = float(sum(a.nbytes for a in leaves))
         reg.counter(f"{base}.calls").inc()
         reg.counter(f"{base}.flops").inc(max(float(flops), 0.0))
         reg.counter(f"{base}.bytes").inc(nbytes)
-        reg.histogram(f"{base}.wall_s").observe(wall)
-        if wall > 0.0 and flops > 0.0:
-            reg.gauge(f"{base}.gflops_per_s").set(flops / wall / 1e9)
+        if out.device.type == "cuda" and self.ev0 is not None:
+            spans.end_pair(self.ev0, lambda ms: _observe(reg, base, flops,
+                                                         ms / 1e3))
+        else:
+            _observe(reg, base, flops, wall)
 
 
 def kernel_probe(name: str):

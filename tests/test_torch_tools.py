@@ -1,8 +1,8 @@
 """The tools on the port's output: ``tools/port_ckpt_diff.py`` over the
-port's kill-and-resume checkpoints and ``tools/check_trace.py`` over its
-``--trace-dir`` directory, as the Makefile's ``port-resume-smoke`` and
-``port-trace-smoke`` run them, here on the CPU with the Makefile's own
-``RESUME_ARGS``."""
+port's kill-and-resume checkpoints, and ``tools/check_trace.py`` and
+``tools/port_check_spans.py`` over its ``--trace-dir`` directory, as the
+Makefile's ``port-resume-smoke`` and ``port-trace-smoke`` run them, here
+on the CPU with the Makefile's own ``RESUME_ARGS``."""
 
 import contextlib
 import io
@@ -13,7 +13,7 @@ import torch
 
 from chip_smoke import _resume_args
 from repro_torch.launch.train import main as train_main
-from tools import check_trace, ckpt_diff, port_ckpt_diff
+from tools import check_trace, ckpt_diff, port_check_spans, port_ckpt_diff
 
 STEP = "ckpt_00000002.npz"
 
@@ -120,6 +120,11 @@ def test_check_trace_passes_the_ports_trace_dir(trace_run):
     assert rc == 0, out
     assert out.startswith("ok: trace.json, metrics.jsonl, manifest.json")
     assert (trace_run / "summary.txt").exists()
+
+
+def test_port_check_spans_passes_the_ports_spans_json(trace_run):
+    rc, out = _quiet(port_check_spans.main, [str(trace_run / "spans.json")])
+    assert rc == 0 and out.startswith("ok: "), out
 
 
 def test_check_trace_fails_a_damaged_copy(trace_run, tmp_path):
