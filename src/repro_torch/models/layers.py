@@ -45,6 +45,17 @@ def activation(name: str):
     raise ValueError(name)
 
 
+def activation_backward(name: str):
+    """``(grad, x) -> grad * act'(x)`` for :func:`activation` ``name``:
+    the op autograd itself runs in its backward."""
+    if name == "silu":
+        return torch.ops.aten.silu_backward
+    if name == "gelu":
+        return lambda grad, x: torch.ops.aten.gelu_backward(
+            grad, x, approximate="tanh")
+    raise ValueError(name)
+
+
 def softcap(x, cap: float):
     if not cap:
         return x

@@ -4,7 +4,8 @@ group of 8 ranks, in a subprocess: reduced gemma3-12b on the (2, 2, 2)
 (``tests/test_dryrun_debug.py``: train 128 x 16, prefill 128 x 8, decode
 128 x 8), traced on fake CPU tensors; olmoe-1b-7b (the MoE) and
 recurrentgemma-2b (the RG-LRU) likewise at model 2, and on the (2, 4, 1)
-mesh.
+mesh; olmoe's train step once more with its expert loop's backward left
+to autograd slice by slice.
 
 Checked: each record carries the reference's keys (its ``Roofline.
 to_dict()``'s, with ``traced_*`` in place of ``hlo_*``, and the run's
@@ -32,9 +33,12 @@ DEBUG_MESHES = {"debug_multipod": ((2, 2, 2), ("pod", "data", "model")),
                 "debug_multipod_tp1": ((2, 4, 1), ("pod", "data", "model"))}
 
 _SCRIPT = r"""
-import json, sys
+import json, sys, tempfile
+import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
+from repro_torch.models import moe
+from repro_torch.models.layers import activation
 out_dir, shapes, meshes = sys.argv[1], *map(json.loads, sys.argv[2:4])
 dryrun.MESHES.update(meshes)
 res = {}
@@ -44,13 +48,24 @@ for arch in ["gemma3-12b", "olmoe-1b-7b", "recurrentgemma-2b"]:
             continue
         for kind, sh in shapes.items():
             key = f"{arch}/{mesh}/{kind}"
+            before = moe.grouped_backwards
             try:
                 rec = dryrun.run_one(arch, sh[0], mesh, reduced=True,
                                      shape=ShapeConfig(*sh), out_dir=out_dir,
                                      verbose=False)
-                res[key] = {"ok": True, "rec": rec}
+                res[key] = {"ok": True, "rec": rec,
+                            "grouped": moe.grouped_backwards - before}
             except NotImplementedError as e:
                 res[key] = {"ok": False, "error": str(e)}
+# the MoE's train step again with the expert loop left to autograd slice
+# by slice (the shared forward body under autograd)
+moe._GroupedExperts.apply = lambda xs, wg, wu, wd, sizes, act: torch.cat(
+    moe._expert_loop(xs, wg, wu, wd, sizes, activation(act)))
+res["olmoe-1b-7b/debug_multipod/train_slice_loop"] = {
+    "ok": True, "rec": dryrun.run_one(
+        "olmoe-1b-7b", "t", "debug_multipod", reduced=True,
+        shape=ShapeConfig(*shapes["train"]), out_dir=tempfile.mkdtemp(),
+        verbose=False)}
 res["gemma3-12b/debug_multipod/train_shared_server"] = {
     "ok": True, "rec": dryrun.run_one(
         "gemma3-12b", "t", "debug_multipod", reduced=True,
@@ -177,6 +192,28 @@ def test_other_families_trace_at_model_two(dryrun, arch):
         assert ok["rec"]["collective_detail"]["by_dim"].get(
             "model", {"counts": {"all-reduce": 0}})["counts"][
                 "all-reduce"] == 0
+
+
+def test_moe_train_trace_takes_the_grouped_backward(dryrun):
+    """The MoE's train step on fake tensors (remat "full", the even split
+    of the pairs) takes the expert loop's one-node backward once a MoE
+    layer a local step, and traces the FLOPs and collectives that the
+    slice-by-slice autograd loop traces, at no higher peak; serving steps
+    take none."""
+    from repro_torch.configs.registry import get_arch
+    res, *_ = dryrun
+    layers = get_arch("olmoe-1b-7b").reduced().num_layers
+    for mesh in DEBUG_MESHES:
+        for kind in SHAPES:
+            row = res[f"olmoe-1b-7b/{mesh}/{kind}"]
+            want = (layers * row["rec"]["step_meta"]["local_steps"]
+                    if kind == "train" else 0)
+            assert row["grouped"] == want, (mesh, kind)
+    rec = res["olmoe-1b-7b/debug_multipod/train"]["rec"]
+    plain = res["olmoe-1b-7b/debug_multipod/train_slice_loop"]["rec"]
+    assert rec["traced_flops_per_chip"] == plain["traced_flops_per_chip"]
+    assert rec["collective_detail"] == plain["collective_detail"]
+    assert rec["peak_memory_bytes"] <= plain["peak_memory_bytes"]
 
 
 def test_shared_server_record(dryrun):

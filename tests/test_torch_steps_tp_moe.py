@@ -11,7 +11,8 @@ router's choice is a real one.  Cases: the prefill step, a decode step
 (logits and the written cache), the paper-faithful train round held on
 its update (olmoe under remat "full", whose recompute reads the group
 sizes and issues the "model" group's collectives again; deepseek
-without), and deepseek's decode at batch 1, whose latent cache is split
+without; each rank's experts through the expert loop's one-node
+backward), and deepseek's decode at batch 1, whose latent cache is split
 by length over "data".
 
 Near-ties: each rank routes every token on a hidden state whose sums ran
@@ -50,11 +51,15 @@ WRITES = 3
 
 def _rank(rank, world, dev, ref_path):
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
     with np.load(ref_path) as z:
         flat = dict(z)
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    before = moe.grouped_backwards
     out = port_cases(mesh, flat, ARCHS, SHAPES, ONLY, TRAIN_KW, INDEX)
-    return out if rank == 0 else {"margins": out["margins"]}
+    grouped = moe.grouped_backwards - before
+    return {**(out if rank == 0 else {"margins": out["margins"]}),
+            "grouped_backwards": grouped}
 
 
 @pytest.fixture(scope="module")
@@ -101,3 +106,13 @@ def test_route_margins_are_reported(runs):
         for arch, m in r["margins"].items():
             assert m > 0, (arch, m)
     print({a: m for a, m in ranks[0]["margins"].items()})
+
+
+def test_train_rounds_take_the_grouped_backward(runs):
+    """Each rank's experts (four of eight) went through the expert loop's
+    one-node backward once a MoE layer a local step: the train rounds'
+    2 local steps x (olmoe's 2 MoE layers + deepseek's 1 after its dense
+    first layer), remat's recompute (olmoe) adding none; the prefill and
+    decode steps none."""
+    _, ranks = runs
+    assert [r["grouped_backwards"] for r in ranks] == [2 * (2 + 1)] * 4
